@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one CUDA card, in phases.
+
+    python3 chip_smoke.py
+
+1. Device and TF32: a CUDA card is required (there is no CPU fallback);
+   prints the card's name and power limit; TF32 must be off.
+2. Build: compiles ``icp_tpu_torch/csrc/nn.cu`` with nvcc (sm_90a) and
+   prints the seconds it took.
+3. Kernel vs plain version on the card: the 1-NN kernel, with the coordinate
+   carry (K1) and without (K2), against its plain PyTorch version on the same
+   inputs.  Indices and coordinates must be equal and ``sq`` bit-equal.
+   Times both with CUDA events at the main path's two shapes.
+4. Main path: 2D trimmed ICP on scan1, B = 1024 lanes at capacity 1024 in
+   float32 under the seeded perturbed guesses, through ``converge_multiscale``
+   (decimation 4 with at most 30 iterations, then full resolution: 50
+   iterations, 0.1 deg, 0.01 m).  Counts the kernel's launches in that run.
+   Then one run under torch.profiler (the device's busy share, the kernels
+   by device time) and the time of each step of one iterate.
+5. Pose agreement: 32 of those lanes again on the CPU in float64 with the
+   plain version; the translation deviation must stay <= 2e-3 m.
+
+Any failure raises (non-zero exit).  The line before the last is a JSON
+object of the kernels; the last line is
+``{"ok": true, "device": {"platform": "gpu", ...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+BATCH = 1024
+CAPACITY = 1024
+POSE_LANES = 32
+POSE_AGREEMENT_TOL_M = 2e-3
+NN_SOURCE = "icp_tpu_torch/csrc/nn.cu"
+
+
+def _say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def _cuda_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call over ``reps`` calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bits(torch, x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def _compare(torch, got, want, label):
+    """Exact comparison of a kernel result with the plain version's; returns
+    the largest absolute difference of the finite distances."""
+    sq_k, idx_k = got[0], got[1]
+    sq_p, idx_p = want[0], want[1]
+    if not torch.equal(idx_k, idx_p):
+        bad = int((idx_k != idx_p).sum())
+        raise AssertionError(f"{label}: {bad} indices differ from the plain version")
+    if not torch.equal(_bits(torch, sq_k), _bits(torch, sq_p)):
+        raise AssertionError(f"{label}: sq is not bit-equal to the plain version")
+    if len(got) == 3 and not torch.equal(got[2], want[2]):
+        raise AssertionError(f"{label}: coordinates differ from the plain version")
+    both_inf = torch.isinf(sq_k) & torch.isinf(sq_p)
+    diff = torch.where(both_inf, torch.zeros_like(sq_k), sq_k - sq_p).abs()
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _nn_cases(torch, np, dev):
+    """Inputs of phase 3: (label, query, targets, mask)."""
+    rng = np.random.default_rng(1)
+
+    def cloud_lanes(b, n, m, d, dtype, count_lo):
+        q = torch.tensor(rng.uniform(-10, 10, (b, n, d)), dtype=dtype, device=dev)
+        t = torch.tensor(rng.uniform(-10, 10, (b, m, d)), dtype=dtype, device=dev)
+        counts = torch.tensor(rng.integers(count_lo, m + 1, b), device=dev)
+        mask = torch.arange(m, device=dev)[None, :] < counts[:, None]
+        return q, t, mask
+
+    f32, f64 = torch.float32, torch.float64
+    cases = [
+        ("main fine (1024, 1024, 1024, 2) f32", *cloud_lanes(1024, 1024, 1024, 2, f32, 500)),
+        ("main coarse (1024, 256, 256, 2) f32", *cloud_lanes(1024, 256, 256, 2, f32, 125)),
+    ]
+    q = torch.tensor(rng.uniform(-50, 50, (8, 1000, 3)), dtype=f32, device=dev)
+    t = torch.tensor(rng.uniform(-50, 50, (8, 1300, 3)), dtype=f32, device=dev)
+    mask = torch.tensor(rng.uniform(size=(8, 1300)) > 0.1, device=dev)
+    cases.append(("random mask (8, 1000, 1300, 3) f32", q, t, mask))
+    base = rng.uniform(-5, 5, (64, 2)).astype(np.float32)
+    q = torch.tensor(base, device=dev)[None].contiguous()
+    t = torch.tensor(np.tile(base, (16, 1)), device=dev)[None].contiguous()
+    cases.append(("ties: 16 copies of 64 points", q, t, None))
+    q, t, mask = cloud_lanes(4, 300, 500, 2, f32, 1)
+    mask[0] = False
+    cases.append(("lane 0 all masked (4, 300, 500, 2) f32", q, t, mask))
+    q, t, mask = cloud_lanes(3, 200, 700, 3, f64, 1)
+    cases.append(("float64 (3, 200, 700, 3)", q, t, mask))
+    return cases
+
+
+def _trace(torch, run) -> str:
+    """One main-path run under torch.profiler: the device's busy share of the
+    run's wall time, the kernel count, and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return f"wall {wall_us / 1e3:.2f} ms; the profiler recorded no device kernels"
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:  # union of the kernels' intervals
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        acc = by_name.setdefault(e.name[:80], [0.0, 0])
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    lines = [f"wall {wall_us / 1e3:.2f} ms, {len(kernels)} kernels, device busy "
+             f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall)"]
+    lines += [f"  {us / 1e3:8.3f} ms {n:6d}x  {name}" for name, (us, n) in top]
+    return "\n".join(lines)
+
+
+def _iterate_steps(torch, icp, source, target, guess) -> str:
+    """Milliseconds per call of each step of one full-resolution trimmed
+    iterate at B = 1024, over 20 calls ending in a synchronise (so each
+    number is whichever of host dispatch or device work bounds it)."""
+    from icp_tpu_torch import geometry
+    from icp_tpu_torch.methods.trimmed import trim_weights
+    from icp_tpu_torch.ops import fused_nn
+    from icp_tpu_torch.ops.rigid_fit import fit_rigid
+
+    method = icp.from_method("trimmed", 2)
+    state = method.init(source, target, guess)
+    a_cur = geometry.apply(state.transform, source.points)
+    sq, idx, coords = fused_nn.fused_nearest_neighbors(
+        a_cur, target.points, target.mask, return_coords=True)
+    sq = torch.where(source.mask, sq, torch.full_like(sq, math.inf))
+    weights = trim_weights(sq, source.count, 0.9, sq.dtype)
+    step = fit_rigid(a_cur, coords, weights)
+    steps = {
+        "apply": lambda: geometry.apply(state.transform, source.points),
+        "nn kernel K1": lambda: fused_nn.fused_nearest_neighbors(
+            a_cur, target.points, target.mask, return_coords=True),
+        "trim_weights (radix)": lambda: trim_weights(sq, source.count, 0.9, sq.dtype),
+        "fit_rigid": lambda: fit_rigid(a_cur, coords, weights),
+        "compose": lambda: geometry.compose(step, state.transform),
+        "cost": lambda: method.cost(state),
+        "whole iterate": lambda: method.iterate(state),
+    }
+    out = []
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        out.append(f"{name} {(time.perf_counter() - t0) / 20 * 1e3:.3f}")
+    return "ms per call: " + ", ".join(out)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
+    sys.path.insert(0, REPO)
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import _build
+    from icp_tpu_torch.ops import fused_nn, nn, pallas_nn
+
+    # Phase 1: device and TF32.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on; the package must turn it off")
+    _say("device", f"{kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, TF32 off")
+    dev = torch.device("cuda", 0)
+
+    # Phase 2: build.
+    t0 = time.perf_counter()
+    was_built = _build.library_path("nn").exists()
+    _build.load("nn")
+    build_s = time.perf_counter() - t0
+    _say("build", f"{NN_SOURCE} {'loaded' if was_built else 'built'} in {build_s:.2f} s")
+
+    # Phase 3: kernel vs plain version.
+    errs = {"K1": 0.0, "K2": 0.0}
+    for label, q, t, mask in _nn_cases(torch, np, dev):
+        k1 = fused_nn.fused_nearest_neighbors(q, t, mask, return_coords=True)
+        p1 = fused_nn.plain_fused_nearest_neighbors(q, t, mask, return_coords=True)
+        k2 = pallas_nn.nearest_neighbors_pallas(q, t, mask)
+        p2 = nn.nearest_neighbors(q, t, mask)
+        torch.cuda.synchronize()
+        errs["K1"] = max(errs["K1"], _compare(torch, k1, p1, f"K1 {label}"))
+        errs["K2"] = max(errs["K2"], _compare(torch, k2, p2, f"K2 {label}"))
+        line = f"{label}: K1 and K2 exact (idx, coords, sq bits)"
+        if label.startswith("ties"):
+            if int(k1[1].max()) >= 64:
+                raise AssertionError("ties: a later copy won over the first")
+            line += ", first copy wins"
+        if label.startswith("lane 0"):
+            if not (torch.isinf(k1[0][0]).all() and (k1[1][0] == 0).all()):
+                raise AssertionError("all-masked lane must give (inf, 0)")
+            line += ", masked lane (inf, 0)"
+        if label.startswith("main"):
+            ms = {
+                "K1": _cuda_ms(torch, lambda: fused_nn.fused_nearest_neighbors(
+                    q, t, mask, return_coords=True), 20),
+                "K1_plain": _cuda_ms(torch, lambda: fused_nn.plain_fused_nearest_neighbors(
+                    q, t, mask, return_coords=True), 5),
+                "K2": _cuda_ms(torch, lambda: pallas_nn.nearest_neighbors_pallas(q, t, mask), 20),
+                "K2_plain": _cuda_ms(torch, lambda: nn.nearest_neighbors(q, t, mask), 5),
+            }
+            line += "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            if label.startswith("main fine"):
+                fine_ms = ms
+        _say("kernel", line)
+        del k1, p1, k2, p2
+    torch.cuda.empty_cache()
+
+    # Phase 4: the main path.
+    data = os.path.join(REPO, "ex_data")
+    a_pts = icp.io.parse_lidar_scan_array(f"{data}/scan1/first.csv")
+    b_pts = icp.io.parse_lidar_scan_array(f"{data}/scan1/second.csv")
+    a1 = icp.from_points(a_pts, capacity=CAPACITY, dtype=torch.float32, device=dev)
+    b1 = icp.from_points(b_pts, capacity=CAPACITY, dtype=torch.float32, device=dev)
+    source, target = icp.stack([a1] * BATCH), icp.stack([b1] * BATCH)
+    rng = np.random.default_rng(0)
+    angles = rng.uniform(-0.05, 0.05, BATCH).astype(np.float32)
+    shifts = rng.uniform(-0.2, 0.2, (BATCH, 2)).astype(np.float32)
+    guess = icp.from_angle_2d(torch.tensor(angles, device=dev), torch.tensor(shifts, device=dev))
+    method = icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9))
+    cfg = icp.DriverConfig(
+        max_iterations=50, angle_tolerance=0.1 * math.pi / 180, translation_tolerance=0.01
+    )
+
+    def run():
+        out, _ = icp.converge_multiscale(
+            method, source, target, guess, cfg, factors=(4,), coarse_max_iterations=30
+        )
+        float(out.cost.sum())  # waits for the device
+        return out
+
+    run()  # warm-up
+    times = []
+    for rep in range(5):
+        if rep == 0:
+            fused_nn.LAUNCHES = fused_nn.COORD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = run()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = {"K1": fused_nn.COORD_LAUNCHES,
+                        "K2": fused_nn.LAUNCHES - fused_nn.COORD_LAUNCHES}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the main path did not launch every kernel: {launches}")
+    rot, trans = result.transform.rotation, result.transform.translation
+    if rot.shape != (BATCH, 2, 2) or trans.shape != (BATCH, 2):
+        raise AssertionError(f"pose shapes {tuple(rot.shape)}, {tuple(trans.shape)}")
+    if not (torch.isfinite(rot).all() and torch.isfinite(trans).all()):
+        raise AssertionError("non-finite poses")
+    if not torch.isfinite(result.cost).all():
+        raise AssertionError("non-finite costs")
+    iters = result.iteration_count
+    if int(iters.max()) > cfg.max_iterations:
+        raise AssertionError(f"a lane ran {int(iters.max())} > {cfg.max_iterations} iterations")
+    med = float(np.median(times))
+    _say(
+        "main",
+        f"scan1 trimmed multiscale B={BATCH}: {BATCH / med:.2f} pairs/s "
+        f"(median of {len(times)}: {med * 1e3:.2f} ms; runs ms "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in times)}), "
+        f"mean iterations {float(iters.float().mean()):.4f}, "
+        f"mean cost {float(result.cost.mean()):.6f}, launches {launches}",
+    )
+
+    _say("trace", _trace(torch, run))
+    _say("steps", _iterate_steps(torch, icp, source, target, guess))
+
+    # Phase 5: pose agreement with the CPU float64 run.
+    lanes = np.arange(0, BATCH, BATCH // POSE_LANES)
+    a64 = icp.from_points(a_pts, capacity=CAPACITY, dtype=torch.float64)
+    b64 = icp.from_points(b_pts, capacity=CAPACITY, dtype=torch.float64)
+    guess64 = icp.from_angle_2d(
+        torch.tensor(angles[lanes], dtype=torch.float64),
+        torch.tensor(shifts[lanes], dtype=torch.float64),
+    )
+    t0 = time.perf_counter()
+    cpu, _ = icp.converge_multiscale(
+        method, icp.stack([a64] * len(lanes)), icp.stack([b64] * len(lanes)), guess64, cfg,
+        factors=(4,), coarse_max_iterations=30,
+    )
+    cpu_s = time.perf_counter() - t0
+    t_gpu = trans[torch.as_tensor(lanes, device=dev)].double().cpu()
+    max_dt = float(torch.linalg.vector_norm(t_gpu - cpu.transform.translation, dim=-1).max())
+    col_drift = float((torch.linalg.vector_norm(rot.double(), dim=-2) - 1).abs().max())
+    same_iters = int((iters[torch.as_tensor(lanes, device=dev)].cpu() == cpu.iteration_count).sum())
+    _say(
+        "pose",
+        f"{len(lanes)} lanes, CUDA f32 vs CPU f64: max |dt| {max_dt:.3e} m "
+        f"(gate {POSE_AGREEMENT_TOL_M}), rotation max ||col|-1| {col_drift:.3e}, "
+        f"equal iteration counts {same_iters}/{len(lanes)}, CPU run {cpu_s:.1f} s",
+    )
+    if not max_dt <= POSE_AGREEMENT_TOL_M:
+        raise AssertionError(f"pose agreement failed: {max_dt} > {POSE_AGREEMENT_TOL_M}")
+
+    kernels = [
+        {"name": "nn_coords (K1)", "route": "cuda", "source": NN_SOURCE,
+         "replaces": "icp_tpu/ops/fused_nn.py:70", "launches": launches["K1"],
+         "max_abs_err": errs["K1"], "ms": fine_ms["K1"], "plain_ms": fine_ms["K1_plain"]},
+        {"name": "nn (K2)", "route": "cuda", "source": NN_SOURCE,
+         "replaces": "icp_tpu/ops/pallas_nn.py:48", "launches": launches["K2"],
+         "max_abs_err": errs["K2"], "ms": fine_ms["K2"], "plain_ms": fine_ms["K2_plain"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

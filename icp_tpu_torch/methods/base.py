@@ -1,0 +1,83 @@
+"""Method interface and string-keyed registry.
+
+Port of :mod:`icp_tpu.methods.base`.  A method is a bundle of plain
+functions over an immutable state (``ICP<Dim>``'s ``setup``/``iterate``/
+``calculate_cost``, ``include/icp/icp.h:49-173``):
+
+* ``init(source, target, guess) -> state``
+* ``iterate(state) -> state``
+* ``cost(state) -> (...,) tensor``
+
+States carry any leading batch dims, so one call registers one pair or
+thousands.  The registry mirrors ``from_method`` (``icp.h:95-114``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..cloud import PointCloud
+from ..config import Config
+from ..geometry import RigidTransform
+
+
+@dataclasses.dataclass(frozen=True)
+class Method:
+    """A registered ICP method: plain init/iterate/cost over a state."""
+
+    name: str
+    dim: int
+    init: Callable[[PointCloud, PointCloud, RigidTransform], Any]
+    iterate: Callable[[Any], Any]
+    cost: Callable[[Any], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Matches:
+    """Per-source-point correspondences (``ICP::get_matches``, ``icp.h:61-70``)
+    as arrays; ``valid`` marks real source points."""
+
+    source_idx: torch.Tensor  # (..., N) int32
+    target_idx: torch.Tensor  # (..., N) int32
+    cost: torch.Tensor  # (..., N)
+    valid: torch.Tensor  # (..., N) bool
+
+
+def get_matches(state) -> Matches | None:
+    """The current match set of a method state, or None if it tracks none."""
+    idx = getattr(state, "match_idx", None)
+    cost = getattr(state, "match_cost", None)
+    if idx is None or cost is None:
+        return None
+    n = idx.shape[-1]
+    src = torch.arange(n, dtype=torch.int32, device=idx.device).expand(idx.shape)
+    return Matches(source_idx=src, target_idx=idx, cost=cost, valid=state.source.mask)
+
+
+MethodFactory = Callable[[Config], Method]
+
+_REGISTRY: dict[tuple[str, int], MethodFactory] = {}
+
+
+def register_method(name: str, dim: int, factory: MethodFactory) -> None:
+    """Register a method constructor under ``(name, dim)``."""
+    _REGISTRY[(name, dim)] = factory
+
+
+def from_method(name: str, dim: int, config: Config | None = None) -> Method:
+    """Construct a method by name; ``KeyError`` lists the registered ones."""
+    key = (name, dim)
+    if key not in _REGISTRY:
+        raise KeyError(f"unknown {dim}D method {name!r}; registered: {registered_methods(dim)}")
+    return _REGISTRY[key](config if config is not None else Config())
+
+
+def is_method_registered(name: str, dim: int) -> bool:
+    return (name, dim) in _REGISTRY
+
+
+def registered_methods(dim: int) -> list[str]:
+    return sorted(n for (n, d) in _REGISTRY if d == dim)

@@ -1,0 +1,91 @@
+"""Exact nearest-neighbour correspondence, in plain PyTorch.
+
+Port of :mod:`icp_tpu.ops.nn`.  These are the plain versions: the CPU path of
+the 1-NN wrappers in :mod:`icp_tpu_torch.ops.fused_nn` and
+:mod:`icp_tpu_torch.ops.pallas_nn`, and the oracle their CUDA kernel is held
+against on the card.
+
+Semantics, as in the JAX package: squared Euclidean distance summed per
+coordinate in coordinate order (``(d0*d0) + d1*d1 ...``), masked targets at
++inf, ties to the lowest target index, and a row with no valid target gives
+``(inf, 0)``.  The ``|q|^2 - 2 q.t + |t|^2`` expansion is not used: it
+cancels catastrophically in float32.
+
+PyTorch runs each elementwise step as its own kernel and materializes every
+``(B, N, M)`` intermediate, so :func:`nearest_neighbors` walks the batch in
+chunks that keep one intermediate under :data:`CHUNK_BYTES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+CHUNK_BYTES = 1 << 30
+
+
+def pairwise_sq_dists(query: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Squared distances ``(..., N, D) x (..., M, D) -> (..., N, M)``.
+
+    One subtract, one multiply and one add per coordinate, each a separate
+    elementwise op, so nothing is contracted into a fused multiply-add.
+    """
+    acc = None
+    for d in range(query.shape[-1]):
+        diff = query[..., :, None, d] - targets[..., None, :, d]
+        sq = diff * diff
+        acc = sq if acc is None else acc + sq
+    return acc
+
+
+def _nearest_dense(query, targets, target_mask):
+    d2 = pairwise_sq_dists(query, targets)
+    if target_mask is not None:
+        d2 = d2.masked_fill(~target_mask[..., None, :], float("inf"))
+    # torch.min returns the first minimal index of each row: ties go low.
+    sq, idx = torch.min(d2, dim=-1)
+    return sq, idx.to(torch.int32)
+
+
+def nearest_neighbors(
+    query: torch.Tensor,
+    targets: torch.Tensor,
+    target_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN of each query among the (masked) targets.
+
+    Shapes ``(..., N, D)``, ``(..., M, D)`` and ``(..., M)`` with leading
+    dims that broadcast.  Returns ``(sq (..., N), idx (..., N) int32)``.
+    """
+    lead = torch.broadcast_shapes(
+        query.shape[:-2],
+        targets.shape[:-2],
+        () if target_mask is None else target_mask.shape[:-1],
+    )
+    n, dim = query.shape[-2:]
+    m = targets.shape[-2]
+    q = query.expand(*lead, n, dim).reshape(-1, n, dim)
+    t = targets.expand(*lead, m, dim).reshape(-1, m, dim)
+    mk = None if target_mask is None else target_mask.expand(*lead, m).reshape(-1, m)
+    batch = q.shape[0]
+    lane_bytes = max(n * m * q.element_size(), 1)
+    chunk = max(1, CHUNK_BYTES // lane_bytes)
+    if batch <= chunk:
+        sq, idx = _nearest_dense(q, t, mk)
+    else:
+        sq = torch.empty((batch, n), dtype=q.dtype, device=q.device)
+        idx = torch.empty((batch, n), dtype=torch.int32, device=q.device)
+        for b0 in range(0, batch, chunk):
+            sl = slice(b0, b0 + chunk)
+            sq[sl], idx[sl] = _nearest_dense(q[sl], t[sl], None if mk is None else mk[sl])
+    return sq.reshape(*lead, n), idx.reshape(*lead, n)
+
+
+def masked_min_with_index(
+    values: torch.Tensor, indices: torch.Tensor, axis: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Combine ``(value, index)`` pairs along ``axis`` by minimum value, ties to
+    the first entry (the building block of a sharded correspondence merge)."""
+    best = torch.argmin(values, dim=axis, keepdim=True)
+    min_vals = torch.take_along_dim(values, best, dim=axis)
+    min_idx = torch.take_along_dim(indices, best, dim=axis)
+    return min_vals.squeeze(axis), min_idx.squeeze(axis)
