@@ -7,18 +7,26 @@
    prints the card's name and power limit; TF32 must be off.
 2. Build: compiles ``icp_tpu_torch/csrc/nn.cu`` with nvcc (sm_90a) and
    prints the seconds it took.
-3. Kernel vs plain version on the card: the 1-NN kernel, with the coordinate
-   carry (K1) and without (K2), against its plain PyTorch version on the same
-   inputs.  Indices and coordinates must be equal and ``sq`` bit-equal.
-   Times both with CUDA events at the main path's two shapes.
+3. Kernel vs plain version on the card: the 1-NN kernel, with the matched
+   coordinates (K1) and without (K2), against its plain PyTorch version on
+   the same inputs, at the main path's two shapes and at shapes that reach
+   its other code paths (targets in several shared-memory stages, N not a
+   multiple of the queries per warp, lanes sharing a block, D = 3, float64).
+   Indices and coordinates must be equal and ``sq`` bit-equal.  At the main
+   path's two shapes, times both with CUDA events, per call from the host
+   and per launch from a CUDA graph (the device's time), beside their bound (the
+   larger of the valid pairs' flops at the float32 peak and the bytes at the
+   memory rate) and beside ``torch.cdist(...).min(-1)``, unmasked: a
+   yardstick the port never calls, not the same function.
 4. Main path: 2D trimmed ICP on scan1, B = 1024 lanes at capacity 1024 in
    float32 under the seeded perturbed guesses, through ``converge_multiscale``
    (decimation 4 with at most 30 iterations, then full resolution: 50
    iterations, 0.1 deg, 0.01 m).  Counts the kernel's launches in that run.
    Then one run under torch.profiler (the device's busy share, the kernels
    by device time) and the time of each step of one iterate.
-5. Pose agreement: 32 of those lanes again on the CPU in float64 with the
-   plain version; the translation deviation must stay <= 2e-3 m.
+5. Pose agreement: 32 of those lanes again on the CPU (``device="cpu"``:
+   the entry points default to the card) in float64 with the plain version;
+   the translation deviation must stay <= 2e-3 m.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object of the kernels; the last line is
@@ -40,6 +48,12 @@ CAPACITY = 1024
 POSE_LANES = 32
 POSE_AGREEMENT_TOL_M = 2e-3
 NN_SOURCE = "icp_tpu_torch/csrc/nn.cu"
+# Published H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor
+# cores, and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+LIBRARY_CALL = ('torch.cdist(q, t, compute_mode="donot_use_mm_for_euclid_dist").min(-1), '
+                "unmasked: a yardstick the port never calls, not the same function")
 
 
 def _say(phase: str, msg: str) -> None:
@@ -58,6 +72,27 @@ def _cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, launches: int = 20, reps: int = 10) -> float:
+    """Device milliseconds per call: ``launches`` calls captured in one CUDA
+    graph and replayed ``reps`` times, so no host work sits between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
 
 
 def _bits(torch, x):
@@ -110,7 +145,31 @@ def _nn_cases(torch, np, dev):
     cases.append(("lane 0 all masked (4, 300, 500, 2) f32", q, t, mask))
     q, t, mask = cloud_lanes(3, 200, 700, 3, f64, 1)
     cases.append(("float64 (3, 200, 700, 3)", q, t, mask))
+    cases.append(("staged M (2, 512, 40000, 2) f32", *cloud_lanes(2, 512, 40000, 2, f32, 30000)))
+    base = rng.uniform(-5, 5, (64, 2)).astype(np.float32)
+    q = torch.tensor(base, device=dev)[None].contiguous()
+    t = torch.tensor(np.tile(base, (400, 1)), device=dev)[None].contiguous()
+    cases.append(("ties: 400 copies of 64 points, across stages", q, t, None))
+    cases.append(("ragged N (16, 1000, 1100, 2) f32", *cloud_lanes(16, 1000, 1100, 2, f32, 1)))
+    cases.append(("ragged N (8, 300, 777, 2) f32", *cloud_lanes(8, 300, 777, 2, f32, 1)))
+    cases.append(("lanes share a block (30, 7, 50, 2) f32", *cloud_lanes(30, 7, 50, 2, f32, 1)))
+    cases.append(("staged float64 (2, 100, 5000, 3)", *cloud_lanes(2, 100, 5000, 3, f64, 1)))
     return cases
+
+
+def _bound(q, t, mask, coords: bool):
+    """The least time in ms the card could take for one call on these
+    float32 inputs, and what sets it: the valid (query, target) pairs' 3D - 1
+    flops at the float32 peak, or each input read and each output written
+    once at the memory rate.  Also the flops bound over all pairs."""
+    b, n, d = q.shape
+    valid = b * t.shape[1] if mask is None else int(mask.sum())
+    flop_ms = n * valid * (3 * d - 1) / PEAK_F32_FLOPS * 1e3
+    all_pairs_ms = b * n * t.shape[1] * (3 * d - 1) / PEAK_F32_FLOPS * 1e3
+    ins = q.nbytes + t.nbytes + (0 if mask is None else mask.nbytes)
+    outs = b * n * (q.element_size() + 4) + (q.nbytes if coords else 0)
+    byte_ms = (ins + outs) / PEAK_HBM_BYTES * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes", all_pairs_ms
 
 
 def _trace(torch, run) -> str:
@@ -213,6 +272,7 @@ def main() -> int:
 
     # Phase 3: kernel vs plain version.
     errs = {"K1": 0.0, "K2": 0.0}
+    timed = {}
     for label, q, t, mask in _nn_cases(torch, np, dev):
         k1 = fused_nn.fused_nearest_neighbors(q, t, mask, return_coords=True)
         p1 = fused_nn.plain_fused_nearest_neighbors(q, t, mask, return_coords=True)
@@ -223,7 +283,7 @@ def main() -> int:
         errs["K2"] = max(errs["K2"], _compare(torch, k2, p2, f"K2 {label}"))
         line = f"{label}: K1 and K2 exact (idx, coords, sq bits)"
         if label.startswith("ties"):
-            if int(k1[1].max()) >= 64:
+            if int(k1[1].max()) >= 64 or int(k2[1].max()) >= 64:
                 raise AssertionError("ties: a later copy won over the first")
             line += ", first copy wins"
         if label.startswith("lane 0"):
@@ -238,10 +298,20 @@ def main() -> int:
                     q, t, mask, return_coords=True), 5),
                 "K2": _cuda_ms(torch, lambda: pallas_nn.nearest_neighbors_pallas(q, t, mask), 20),
                 "K2_plain": _cuda_ms(torch, lambda: nn.nearest_neighbors(q, t, mask), 5),
+                "K1_graph": _graph_ms(torch, lambda: fused_nn.fused_nearest_neighbors(
+                    q, t, mask, return_coords=True)),
+                "K2_graph": _graph_ms(
+                    torch, lambda: pallas_nn.nearest_neighbors_pallas(q, t, mask)),
+                "library": _cuda_ms(torch, lambda: torch.cdist(
+                    q, t, compute_mode="donot_use_mm_for_euclid_dist").min(-1), 5),
             }
-            line += "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-            if label.startswith("main fine"):
-                fine_ms = ms
+            for k in ("K1", "K2"):
+                ms[f"{k}_bound"], ms[f"{k}_bound_by"], ms["all_pairs_bound"] = _bound(
+                    q, t, mask, coords=k == "K1")
+                ms[f"{k}_pct_of_bound"] = 100 * ms[f"{k}_bound"] / ms[k]
+            line += "; " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in ms.items())
+            timed[label.split()[1]] = ms
         _say("kernel", line)
         del k1, p1, k2, p2
     torch.cuda.empty_cache()
@@ -307,8 +377,8 @@ def main() -> int:
 
     # Phase 5: pose agreement with the CPU float64 run.
     lanes = np.arange(0, BATCH, BATCH // POSE_LANES)
-    a64 = icp.from_points(a_pts, capacity=CAPACITY, dtype=torch.float64)
-    b64 = icp.from_points(b_pts, capacity=CAPACITY, dtype=torch.float64)
+    a64 = icp.from_points(a_pts, capacity=CAPACITY, dtype=torch.float64, device="cpu")
+    b64 = icp.from_points(b_pts, capacity=CAPACITY, dtype=torch.float64, device="cpu")
     guess64 = icp.from_angle_2d(
         torch.tensor(angles[lanes], dtype=torch.float64),
         torch.tensor(shifts[lanes], dtype=torch.float64),
@@ -332,14 +402,23 @@ def main() -> int:
     if not max_dt <= POSE_AGREEMENT_TOL_M:
         raise AssertionError(f"pose agreement failed: {max_dt} > {POSE_AGREEMENT_TOL_M}")
 
-    kernels = [
-        {"name": "nn_coords (K1)", "route": "cuda", "source": NN_SOURCE,
-         "replaces": "icp_tpu/ops/fused_nn.py:70", "launches": launches["K1"],
-         "max_abs_err": errs["K1"], "ms": fine_ms["K1"], "plain_ms": fine_ms["K1_plain"]},
-        {"name": "nn (K2)", "route": "cuda", "source": NN_SOURCE,
-         "replaces": "icp_tpu/ops/pallas_nn.py:48", "launches": launches["K2"],
-         "max_abs_err": errs["K2"], "ms": fine_ms["K2"], "plain_ms": fine_ms["K2_plain"]},
-    ]
+    def entry(k, name, replaces):
+        fine, coarse = timed["fine"], timed["coarse"]
+        return {
+            "name": name, "route": "cuda", "source": NN_SOURCE, "replaces": replaces,
+            "launches": launches[k], "max_abs_err": errs[k], "ms": fine[k],
+            "graph_ms": fine[f"{k}_graph"], "plain_ms": fine[f"{k}_plain"],
+            "bound_ms": fine[f"{k}_bound"], "bound_by": fine[f"{k}_bound_by"],
+            "pct_of_bound": fine[f"{k}_pct_of_bound"],
+            "all_pairs_bound_ms": fine["all_pairs_bound"], "library_ms": fine["library"],
+            "library_call": LIBRARY_CALL, "coarse_ms": coarse[k],
+            "coarse_graph_ms": coarse[f"{k}_graph"], "coarse_plain_ms": coarse[f"{k}_plain"],
+            "coarse_bound_ms": coarse[f"{k}_bound"],
+            "coarse_library_ms": coarse["library"],
+        }
+
+    kernels = [entry("K1", "nn_coords (K1)", "icp_tpu/ops/fused_nn.py:70"),
+               entry("K2", "nn (K2)", "icp_tpu/ops/pallas_nn.py:48")]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -3,9 +3,11 @@
 Batched 2D trimmed ICP on tensors, with the exact masked 1-NN
 correspondence as a CUDA kernel for Hopper (``csrc/nn.cu``, built with
 ``nvcc`` at first use).  The JAX package is the reference each module is
-tested against.  Dtype policy: float64 on the CPU, float32 on CUDA.
+tested against.  The entry points put their tensors on the card unless the
+caller passes ``device="cpu"``.  Dtype policy: float64 on the CPU, float32 on
+CUDA.
 
-Quick start::
+Quick start (on the card, in float32)::
 
     import icp_tpu_torch as icp
 

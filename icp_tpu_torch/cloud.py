@@ -63,7 +63,7 @@ def from_points(
     points,
     capacity: int | str | None = None,
     dtype: torch.dtype | None = None,
-    device="cpu",
+    device="cuda",
     pad_multiple: int = 8,
 ) -> PointCloud:
     """Build a cloud from an ``(N, D)`` array, padding to ``capacity``.
@@ -71,7 +71,8 @@ def from_points(
     Non-finite rows are dropped first (the reference's inf filter,
     ``common/parse_scan.cpp:37-39``).  ``capacity`` defaults to ``N`` rounded
     up to ``pad_multiple``; ``"bucket"`` pads to the next power of two.
-    ``dtype`` defaults to float64 on the CPU and float32 elsewhere.
+    The cloud lands on the card unless ``device="cpu"`` is passed; ``dtype``
+    defaults to float64 on the CPU and float32 elsewhere.
     """
     dtype = default_dtype(device) if dtype is None else dtype
     pts = torch.tensor(np.asarray(points), dtype=dtype, device=device)

@@ -1,7 +1,9 @@
 """Carry state between the JAX package and this port, as numpy arrays.
 
 The JAX package's objects are read out with ``np.asarray`` on its fields and
-rebuilt here (and back), so the same numbers enter both implementations:
+rebuilt here (and back), so the same numbers enter both implementations.  The
+constructors put their tensors on the card unless ``device="cpu"`` is passed,
+as the tests that compare with the JAX package do:
 
 * ``PointCloud.points`` / ``.count``
 * ``RigidTransform.rotation`` / ``.translation``
@@ -26,7 +28,7 @@ def _tensor(array, dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(array), dtype=dtype, device=device)
 
 
-def cloud_from_numpy(points, count, *, dtype=None, device="cpu") -> PointCloud:
+def cloud_from_numpy(points, count, *, dtype=None, device="cuda") -> PointCloud:
     """A cloud from ``points (..., N, D)`` and ``count (...,)`` arrays."""
     count = torch.tensor(np.asarray(count), dtype=torch.int32, device=device)
     return PointCloud(_tensor(points, dtype, device).contiguous(), count)
@@ -37,7 +39,7 @@ def cloud_to_numpy(cloud: PointCloud) -> tuple[np.ndarray, np.ndarray]:
     return cloud.points.cpu().numpy(), cloud.count.cpu().numpy()
 
 
-def transform_from_numpy(rotation, translation, *, dtype=None, device="cpu") -> RigidTransform:
+def transform_from_numpy(rotation, translation, *, dtype=None, device="cuda") -> RigidTransform:
     """A transform from ``rotation (..., D, D)`` and ``translation (..., D)`` arrays."""
     return RigidTransform(
         _tensor(rotation, dtype, device).contiguous(), _tensor(translation, dtype, device)

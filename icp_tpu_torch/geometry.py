@@ -4,6 +4,11 @@ Port of :mod:`icp_tpu.geometry`.  Points are rows ``(..., N, D)``; a
 :class:`RigidTransform` holds a rotation ``(..., D, D)`` and a translation
 ``(..., D)`` with any leading batch dims.
 
+Device policy: the entry points that make tensors (:func:`identity`,
+:func:`from_angle_2d` from a number, and ``cloud.from_points`` and the
+``convert`` constructors) put them on the card unless the caller passes
+``device="cpu"``; without a card they raise.
+
 Dtype policy: float64 on the CPU (parity with the JAX package), float32 on
 CUDA (the main path).  Pose contractions need full float32 precision: with
 reduced precision, composed rotations drift off SO(D) and converged poses
@@ -47,7 +52,7 @@ class RigidTransform:
 
 
 def identity(
-    dim: int, batch_shape: tuple[int, ...] = (), dtype=None, device="cpu"
+    dim: int, batch_shape: tuple[int, ...] = (), dtype=None, device="cuda"
 ) -> RigidTransform:
     """The identity transform with the given batch shape."""
     dtype = default_dtype(device) if dtype is None else dtype
@@ -78,14 +83,14 @@ def inverse(transform: RigidTransform) -> RigidTransform:
     return RigidTransform(rot_t.contiguous(), trans)
 
 
-def from_angle_2d(angle, translation=None) -> RigidTransform:
+def from_angle_2d(angle, translation=None, *, device="cuda") -> RigidTransform:
     """SE(2) transform from an angle (radians) and an optional translation.
 
-    ``angle`` is a tensor (its dtype and device are kept) or a number (then
-    float64 on the CPU).
+    ``angle`` is a tensor (its dtype and device are kept, ``device`` is not
+    read) or a number (then a tensor on ``device`` in its default dtype).
     """
     if not isinstance(angle, torch.Tensor):
-        angle = torch.tensor(angle, dtype=torch.float64)
+        angle = torch.tensor(angle, dtype=default_dtype(device), device=device)
     c, s = torch.cos(angle), torch.sin(angle)
     rot = torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
     if translation is None:

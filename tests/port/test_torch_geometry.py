@@ -35,7 +35,7 @@ def _transforms(dim, batch=(4,), seed=0):
 def _both(rot, trans):
     return (
         J.RigidTransform(jnp.asarray(rot), jnp.asarray(trans)),
-        convert.transform_from_numpy(rot, trans),
+        convert.transform_from_numpy(rot, trans, device="cpu"),
     )
 
 
@@ -80,13 +80,13 @@ def test_from_angle_2d_and_identity_match_jax():
     tt = T.from_angle_2d(torch.from_numpy(ang), torch.from_numpy(sh))
     np.testing.assert_array_equal(tt.rotation.numpy(), np.asarray(jt.rotation))  # no sums
     np.testing.assert_array_equal(tt.translation.numpy(), np.asarray(jt.translation))
-    zero = T.from_angle_2d(0.25)
+    zero = T.from_angle_2d(0.25, device="cpu")
     assert zero.translation.shape == (2,) and zero.dtype == torch.float64
-    ident = T.identity(3, (2, 5))
+    ident = T.identity(3, (2, 5), device="cpu")
     assert ident.rotation.shape == (2, 5, 3, 3) and ident.dtype == torch.float64
     want = J.identity(3, (2, 5)).rotation
     np.testing.assert_array_equal(ident.rotation.numpy(), np.asarray(want))
-    assert T.identity(2, dtype=torch.float32).dtype == torch.float32
+    assert T.identity(2, dtype=torch.float32, device="cpu").dtype == torch.float32
 
 
 def test_centroids_match_jax():
@@ -109,7 +109,7 @@ def test_from_points_drops_nonfinite_rows_like_jax(capacity):
     pts = np.random.default_rng(7).uniform(-5, 5, (37, 2))
     pts[[3, 10, 20]] = [[np.inf, 1.0], [2.0, -np.inf], [np.nan, 0.0]]
     jc = J.from_points(pts, capacity=capacity, dtype=np.float64)
-    tc = T.from_points(pts, capacity=capacity)
+    tc = T.from_points(pts, capacity=capacity, device="cpu")
     assert tc.capacity == jc.capacity and tc.dtype == torch.float64
     assert int(tc.count) == int(jc.count) == 34 and tc.count.dtype == torch.int32
     np.testing.assert_array_equal(tc.points.numpy(), np.asarray(jc.points))
@@ -122,8 +122,8 @@ def test_cloud_helpers_match_jax():
         J.bucket_capacity(n) for n in (0, 64, 65, 953)
     ]
     assert T.cloud.round_up(13, 8) == J.cloud.round_up(13, 8) == 16
-    a = T.from_points(np.ones((5, 2)))
-    b = T.from_points(np.ones((20, 2)))
+    a = T.from_points(np.ones((5, 2)), device="cpu")
+    b = T.from_points(np.ones((20, 2)), device="cpu")
     st = T.stack([a, b])
     assert st.points.shape == (2, 24, 2) and st.count.tolist() == [5, 20]
     assert st.batch_shape == (2,) and st.dim == 2
@@ -131,9 +131,9 @@ def test_cloud_helpers_match_jax():
     with pytest.raises(ValueError):
         T.pad_to(b, 8)
     with pytest.raises(ValueError):
-        T.from_points(np.ones((9, 2)), capacity=8)
+        T.from_points(np.ones((9, 2)), capacity=8, device="cpu")
     with pytest.raises(ValueError):
-        T.from_points(np.ones((2, 9, 2)))
+        T.from_points(np.ones((2, 9, 2)), device="cpu")
     with pytest.raises(ValueError):
         T.to_numpy(st)
 
@@ -142,16 +142,16 @@ def test_convert_round_trips():
     rng = np.random.default_rng(8)
     pts, count = rng.uniform(-1, 1, (3, 16, 2)), np.array([16, 3, 0], dtype=np.int32)
     jc = J.PointCloud(jnp.asarray(pts), jnp.asarray(count))
-    tc = convert.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.count))
+    tc = convert.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.count), device="cpu")
     np.testing.assert_array_equal(tc.mask.numpy(), np.asarray(jc.mask))
     back_pts, back_count = convert.cloud_to_numpy(tc)
     np.testing.assert_array_equal(back_pts, pts)
     np.testing.assert_array_equal(back_count, count)
     rot, trans = _transforms(2, seed=9)
-    r, t = convert.transform_to_numpy(convert.transform_from_numpy(rot, trans))
+    r, t = convert.transform_to_numpy(convert.transform_from_numpy(rot, trans, device="cpu"))
     np.testing.assert_array_equal(r, rot)
     np.testing.assert_array_equal(t, trans)
-    f32 = convert.transform_from_numpy(rot, trans, dtype=torch.float32)
+    f32 = convert.transform_from_numpy(rot, trans, dtype=torch.float32, device="cpu")
     assert f32.dtype == torch.float32 and f32.translation.dtype == torch.float32
     jcfg = J.DriverConfig(max_iterations=50, angle_tolerance=0.1, translation_tolerance=0.01)
     tcfg = convert.driver_config_from_fields(dataclasses.asdict(jcfg))
@@ -184,3 +184,34 @@ def test_parse_lidar_scan_matches_jax(tmp_path, scan_dir):
     empty = tmp_path / "empty.csv"
     empty.write_text("")
     assert T.io.parse_lidar_scan_array(str(empty)).shape == (0, 2)
+
+
+def _default_device_calls():
+    """The entry points that make tensors, called with no ``device``."""
+    rot, trans = _transforms(2, seed=10)
+    return {
+        "from_points": lambda: T.from_points(np.ones((5, 2))),
+        "identity": lambda: T.identity(2, (3,)),
+        "from_angle_2d": lambda: T.from_angle_2d(0.1),
+        "cloud_from_numpy": lambda: convert.cloud_from_numpy(np.ones((2, 8, 2)), [8, 3]),
+        "transform_from_numpy": lambda: convert.transform_from_numpy(rot, trans),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_default_device_calls()))
+def test_entry_points_raise_without_a_card(name):
+    """No CPU fallback: with no card, the card default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present (test_entry_points_default_to_the_card covers it)")
+    with pytest.raises((AssertionError, RuntimeError)):
+        _default_device_calls()[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_default_device_calls()))
+def test_entry_points_default_to_the_card(cuda_device, name):
+    out = _default_device_calls()[name]()
+    tensors = [getattr(out, f.name) for f in dataclasses.fields(out)]
+    assert all(t.device == cuda_device for t in tensors)
+    floats = [t for t in tensors if t.is_floating_point()]
+    assert floats and all(t.dtype == torch.float32 for t in floats)

@@ -11,6 +11,8 @@ the card the kernel must be bit-equal to the plain version
 """
 
 import functools
+import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from icp_tpu.ops.fused_nn import fused_nearest_neighbors as jax_fused
 from icp_tpu.ops.nn import masked_min_with_index as jax_masked_min
 from icp_tpu.ops.nn import nearest_neighbors as jax_nn
 from icp_tpu.ops.pallas_nn import nearest_neighbors_pallas as jax_pallas
+from icp_tpu_torch._build import CSRC
 from icp_tpu_torch.ops import fused_nn, nn, pallas_nn
 
 SHAPES = [(7, 5, 2), (64, 129, 2), (953, 959, 2), (200, 300, 3), (1024, 700, 3)]
@@ -204,3 +207,127 @@ def test_kernel_matches_plain_on_card(cuda_device, n, m, dim, dtype):
         assert torch.equal(a[0].view(bits), b[0].view(bits))
         assert torch.equal(a[1], b[1])
     assert torch.equal(got[2], want[2])
+
+
+@functools.cache
+def _kernel_knobs():
+    """``NN_THREADS``, ``NN_QUERIES`` and ``NN_CHUNK`` as ``csrc/nn.cu`` sets them."""
+    src = (CSRC / "nn.cu").read_text()
+    return tuple(int(re.search(rf"#define {k} (\d+)", src).group(1))
+                 for k in ("NN_THREADS", "NN_QUERIES", "NN_CHUNK"))
+
+
+def _sq_dist(q, t):
+    """The kernel's per-pair arithmetic: subtract, square, add in coordinate order."""
+    diff = q[..., 0] - t[..., 0]
+    acc = diff * diff
+    for d in range(1, q.shape[-1]):
+        diff = q[..., d] - t[..., d]
+        acc = acc + diff * diff
+    return acc
+
+
+def _emulate_nn_kernel(q, t, mask, stage_budget):
+    """``csrc/nn.cu``'s schedule in PyTorch, for (B, N, D) x (B, M, D) on the CPU.
+
+    The launch geometry and the query of each (block, thread, slot) are the
+    kernel's; ``stage_budget`` (targets per block) stands for its shared-memory
+    budget.  Targets are staged with masked ones and the chunk padding at +inf;
+    each chunk keeps only its minimum, a strict improvement records the
+    chunk, and the end of each stage rescans that chunk for its lowest index;
+    coordinates are looked up once at the end.  Returns (sq, idx, coords).
+    """
+    threads, kq, chunk = _kernel_knobs()
+    b, n, dim = q.shape
+    m = t.shape[1]
+    lane_threads = min(threads, math.ceil(math.ceil(n / kq) / 32) * 32)
+    lanes_per_block = threads // lane_threads
+    blocks_per_lane = math.ceil(n / (lane_threads * kq))
+    blocks = math.ceil(b / lanes_per_block) * blocks_per_lane
+    stage = min(stage_budget // lanes_per_block // chunk * chunk,
+                math.ceil(max(m, 1) / chunk) * chunk)
+
+    blk = torch.arange(blocks)[:, None, None]
+    thr = torch.arange(lanes_per_block * lane_threads)[None, :, None]
+    slot = torch.arange(kq)[None, None, :]
+    group = thr // lane_threads
+    lane = ((blk // blocks_per_lane) * lanes_per_block + group).expand(-1, -1, kq).flatten()
+    i = ((blk % blocks_per_lane) * lane_threads * kq + thr - group * lane_threads
+         + slot * lane_threads).flatten()
+    live = (lane < b) & (i < n)
+    assert live.sum() == b * n and len(set(zip(lane[live].tolist(), i[live].tolist()))) == b * n
+    lane, i = lane.clamp(max=b - 1), i.clamp(max=n - 1)
+    qq = torch.where(live[:, None], q[lane, i], torch.zeros((), dtype=q.dtype))
+
+    inf = torch.tensor(math.inf, dtype=q.dtype)
+    valid = torch.ones((b, m), dtype=torch.bool) if mask is None else mask
+    best = torch.full((len(lane),), math.inf, dtype=q.dtype)
+    best_j = torch.zeros(len(lane), dtype=torch.int64)
+    pend = torch.full((len(lane),), -1, dtype=torch.int64)
+    for base in range(0, m, stage):
+        length = min(stage, m - base)
+        padded = math.ceil(length / chunk) * chunk
+        tile = torch.full((b, padded, dim), math.inf, dtype=q.dtype)
+        tile[:, :length] = torch.where(valid[:, base:base + length, None],
+                                       t[:, base:base + length], inf)
+        tile = tile[lane]
+        for c0 in range(0, padded, chunk):
+            cm = _sq_dist(qq[:, None], tile[:, c0:c0 + chunk]).amin(-1)
+            better = cm < best
+            best = torch.where(better, cm, best)
+            pend = torch.where(better, c0, pend)
+        rows = (pend.clamp(min=0)[:, None] + torch.arange(chunk))[..., None].expand(-1, -1, dim)
+        hit = _sq_dist(qq[:, None], torch.take_along_dim(tile, rows, 1)) == best[:, None]
+        found = torch.argmax(hit.to(torch.int8), dim=-1)  # the first hit
+        best_j = torch.where(pend >= 0, base + pend + found, best_j)
+        pend.fill_(-1)
+    hit_coords = t[lane, best_j]
+    coords = torch.where(torch.isinf(best)[:, None], torch.zeros((), dtype=q.dtype), hit_coords)
+    out_sq = torch.empty((b, n), dtype=q.dtype)
+    out_idx = torch.empty((b, n), dtype=torch.int32)
+    out_coords = torch.empty((b, n, dim), dtype=q.dtype)
+    out_sq[lane[live], i[live]] = best[live]
+    out_idx[lane[live], i[live]] = best_j[live].to(torch.int32)
+    out_coords[lane[live], i[live]] = coords[live]
+    return out_sq, out_idx, out_coords
+
+
+def _schedule_cases():
+    """(label, query, targets, mask, stage budget) in float64; float32 is a cast."""
+    rng = np.random.default_rng(11)
+    base = rng.uniform(-5, 5, (64, 2))
+    masked = rng.uniform(size=(3, 203)) > 0.3
+    masked[0] = False
+    return {
+        "ties across stages": (base[None], np.tile(base, (16, 1))[None], None, 160),
+        "ties within a chunk": (base[None], np.repeat(base, 5, axis=0)[None], None, 4096),
+        "all-masked lane, ragged N and M": (rng.uniform(-5, 5, (3, 37, 2)),
+                                            rng.uniform(-5, 5, (3, 203, 2)), masked, 4096),
+        "N = 300, three stages": (rng.uniform(-5, 5, (2, 300, 2)),
+                                  rng.uniform(-5, 5, (2, 700, 2)),
+                                  rng.uniform(size=(2, 700)) > 0.2, 256),
+        "N = 1000, two blocks per lane, D = 3": (rng.uniform(-5, 5, (1, 1000, 3)),
+                                                 rng.uniform(-5, 5, (1, 333, 3)), None, 4096),
+        "lanes share a block, one stage": (rng.uniform(-5, 5, (9, 20, 2)),
+                                           rng.uniform(-5, 5, (9, 50, 2)),
+                                           rng.uniform(size=(9, 50)) > 0.5, 4096),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(_schedule_cases()))
+def test_kernel_schedule_equals_plain(case, dtype):
+    """The kernel's loop order gives the plain version's result exactly."""
+    q, t, mask, budget = _schedule_cases()[case]
+    q, t = (torch.from_numpy(np.ascontiguousarray(x)).to(dtype) for x in (q, t))
+    mask = None if mask is None else torch.from_numpy(mask)
+    got = _emulate_nn_kernel(q, t, mask, budget)
+    want = fused_nn.plain_fused_nearest_neighbors(q, t, mask, return_coords=True)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(got[0].view(bits), want[0].view(bits))
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    if case == "ties across stages":
+        assert int(got[1].max()) < 64  # the first copy wins
+    if case == "ties within a chunk":
+        assert not (got[1] % 5).any()  # the first of five neighbouring copies wins

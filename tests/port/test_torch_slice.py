@@ -85,7 +85,7 @@ def test_decimate_matches_jax(factor):
     pts = np.random.default_rng(1).uniform(-1, 1, (2, 64, 2))
     count = np.array([64, 9], dtype=np.int32)
     want = J.multiscale.decimate(J.PointCloud(jnp.asarray(pts), jnp.asarray(count)), factor)
-    got = T.multiscale.decimate(convert.cloud_from_numpy(pts, count), factor)
+    got = T.multiscale.decimate(convert.cloud_from_numpy(pts, count, device="cpu"), factor)
     np.testing.assert_array_equal(got.points.numpy(), np.asarray(want.points))
     np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
     assert got.points.is_contiguous() and got.count.dtype == torch.int32

@@ -45,10 +45,12 @@ def _lanes(scan_dir, scan, batch, capacity, seed=0):
         J.from_angle_2d(jnp.asarray(ang), jnp.asarray(sh)),
     )
     port_side = (
-        convert.cloud_from_numpy(np.asarray(jax_side[0].points), np.asarray(jax_side[0].count)),
-        convert.cloud_from_numpy(np.asarray(jax_side[1].points), np.asarray(jax_side[1].count)),
+        convert.cloud_from_numpy(np.asarray(jax_side[0].points), np.asarray(jax_side[0].count),
+                                 device="cpu"),
+        convert.cloud_from_numpy(np.asarray(jax_side[1].points), np.asarray(jax_side[1].count),
+                                 device="cpu"),
         convert.transform_from_numpy(np.asarray(jax_side[2].rotation),
-                                     np.asarray(jax_side[2].translation)),
+                                     np.asarray(jax_side[2].translation), device="cpu"),
     )
     return jax_side, port_side
 
@@ -99,7 +101,8 @@ def test_golden_local_trimmed(scan_dir, scan):
         golden = json.load(f)[f"trimmed/scan{scan}"]
     a, b = _pair(scan_dir, scan)
     result, state = T.converge(
-        T.from_method("trimmed", 2), T.from_points(a), T.from_points(b), T.identity(2),
+        T.from_method("trimmed", 2), T.from_points(a, device="cpu"),
+        T.from_points(b, device="cpu"), T.identity(2, device="cpu"),
         T.DriverConfig(**BENCH),
     )
     assert int(result.iteration_count) == golden["iterations"]
@@ -142,14 +145,15 @@ def test_driver_config_validation():
         T.DriverConfig(angle_tolerance=0.1)
     with pytest.raises(ValueError):
         T.DriverConfig(min_iterations=5, max_iterations=2)
-    cloud = T.from_points(np.ones((8, 2)))
+    cloud = T.from_points(np.ones((8, 2)), device="cpu")
+    ident2, ident3 = T.identity(2, device="cpu"), T.identity(3, device="cpu")
     method = T.from_method("trimmed", 2)
     with pytest.raises(ValueError, match="no termination criterion"):
-        T.converge(method, cloud, cloud, T.identity(2), T.DriverConfig(min_iterations=1))
+        T.converge(method, cloud, cloud, ident2, T.DriverConfig(min_iterations=1))
     with pytest.raises(ValueError, match="time_limit"):
-        T.converge(method, cloud, cloud, T.identity(2), T.DriverConfig(time_limit=1.0))
+        T.converge(method, cloud, cloud, ident2, T.DriverConfig(time_limit=1.0))
     with pytest.raises(ValueError, match="dimension mismatch"):
-        T.converge(method, cloud, cloud, T.identity(3), T.DriverConfig(max_iterations=1))
+        T.converge(method, cloud, cloud, ident3, T.DriverConfig(max_iterations=1))
 
 
 def test_registry():
