@@ -6,17 +6,19 @@
 1. Device and TF32: a CUDA card is required (there is no CPU fallback);
    prints the card's name and power limit; TF32 must be off.
 2. Build: compiles ``icp_tpu_torch/csrc/nn.cu`` with nvcc (sm_90a) and
-   prints the seconds it took.
+   prints the seconds it took and ptxas' registers and spills per kernel
+   instance.
 3. Kernel vs plain version on the card: the 1-NN kernel, with the matched
    coordinates (K1) and without (K2), against its plain PyTorch version on
    the same inputs, at the main path's two shapes and at shapes that reach
    its other code paths (targets in several shared-memory stages, N not a
    multiple of the queries per warp, lanes sharing a block, D = 3, float64).
    Indices and coordinates must be equal and ``sq`` bit-equal.  At the main
-   path's two shapes, times both with CUDA events, per call from the host
-   and per launch from a CUDA graph (the device's time), beside their bound (the
-   larger of the valid pairs' flops at the float32 peak and the bytes at the
-   memory rate) and beside ``torch.cdist(...).min(-1)``, unmasked: a
+   path's two shapes and two staged ones, times both with CUDA events, per
+   call from the host and per launch from a CUDA graph (the device's time),
+   beside their bound (the larger of the valid pairs' flops at the float32
+   peak and the bytes at the memory rate); at the main path's shapes also
+   the plain version and ``torch.cdist(...).min(-1)``, unmasked: a
    yardstick the port never calls, not the same function.
 4. Main path: 2D trimmed ICP on scan1, B = 1024 lanes at capacity 1024 in
    float32 under the seeded perturbed guesses, through ``converge_multiscale``
@@ -38,6 +40,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -117,7 +120,7 @@ def _compare(torch, got, want, label):
 
 
 def _nn_cases(torch, np, dev):
-    """Inputs of phase 3: (label, query, targets, mask)."""
+    """Inputs of phase 3: (label, timing key or None, query, targets, mask)."""
     rng = np.random.default_rng(1)
 
     def cloud_lanes(b, n, m, d, dtype, count_lo):
@@ -129,32 +132,94 @@ def _nn_cases(torch, np, dev):
 
     f32, f64 = torch.float32, torch.float64
     cases = [
-        ("main fine (1024, 1024, 1024, 2) f32", *cloud_lanes(1024, 1024, 1024, 2, f32, 500)),
-        ("main coarse (1024, 256, 256, 2) f32", *cloud_lanes(1024, 256, 256, 2, f32, 125)),
+        ("main fine (1024, 1024, 1024, 2) f32", "fine",
+         *cloud_lanes(1024, 1024, 1024, 2, f32, 500)),
+        ("main coarse (1024, 256, 256, 2) f32", "coarse",
+         *cloud_lanes(1024, 256, 256, 2, f32, 125)),
     ]
     q = torch.tensor(rng.uniform(-50, 50, (8, 1000, 3)), dtype=f32, device=dev)
     t = torch.tensor(rng.uniform(-50, 50, (8, 1300, 3)), dtype=f32, device=dev)
     mask = torch.tensor(rng.uniform(size=(8, 1300)) > 0.1, device=dev)
-    cases.append(("random mask (8, 1000, 1300, 3) f32", q, t, mask))
+    cases.append(("random mask (8, 1000, 1300, 3) f32", None, q, t, mask))
     base = rng.uniform(-5, 5, (64, 2)).astype(np.float32)
     q = torch.tensor(base, device=dev)[None].contiguous()
     t = torch.tensor(np.tile(base, (16, 1)), device=dev)[None].contiguous()
-    cases.append(("ties: 16 copies of 64 points", q, t, None))
+    cases.append(("ties: 16 copies of 64 points", None, q, t, None))
     q, t, mask = cloud_lanes(4, 300, 500, 2, f32, 1)
     mask[0] = False
-    cases.append(("lane 0 all masked (4, 300, 500, 2) f32", q, t, mask))
+    cases.append(("lane 0 all masked (4, 300, 500, 2) f32", None, q, t, mask))
     q, t, mask = cloud_lanes(3, 200, 700, 3, f64, 1)
-    cases.append(("float64 (3, 200, 700, 3)", q, t, mask))
-    cases.append(("staged M (2, 512, 40000, 2) f32", *cloud_lanes(2, 512, 40000, 2, f32, 30000)))
+    cases.append(("float64 (3, 200, 700, 3)", None, q, t, mask))
+    cases.append(("staged M (2, 512, 40000, 2) f32", "staged",
+                  *cloud_lanes(2, 512, 40000, 2, f32, 30000)))
+    # The fine shape's grid with 8x the targets: two stages per lane.
+    cases.append(("two stages per lane (1024, 1024, 8192, 2) f32", "two_stages",
+                  *cloud_lanes(1024, 1024, 8192, 2, f32, 4000)))
     base = rng.uniform(-5, 5, (64, 2)).astype(np.float32)
     q = torch.tensor(base, device=dev)[None].contiguous()
     t = torch.tensor(np.tile(base, (400, 1)), device=dev)[None].contiguous()
-    cases.append(("ties: 400 copies of 64 points, across stages", q, t, None))
-    cases.append(("ragged N (16, 1000, 1100, 2) f32", *cloud_lanes(16, 1000, 1100, 2, f32, 1)))
-    cases.append(("ragged N (8, 300, 777, 2) f32", *cloud_lanes(8, 300, 777, 2, f32, 1)))
-    cases.append(("lanes share a block (30, 7, 50, 2) f32", *cloud_lanes(30, 7, 50, 2, f32, 1)))
-    cases.append(("staged float64 (2, 100, 5000, 3)", *cloud_lanes(2, 100, 5000, 3, f64, 1)))
+    cases.append(("ties: 400 copies of 64 points, across stages", None, q, t, None))
+    cases.append(("ragged N (16, 1000, 1100, 2) f32", None,
+                  *cloud_lanes(16, 1000, 1100, 2, f32, 1)))
+    cases.append(("ragged N (8, 300, 777, 2) f32", None, *cloud_lanes(8, 300, 777, 2, f32, 1)))
+    cases.append(("lanes share a block (30, 7, 50, 2) f32", None,
+                  *cloud_lanes(30, 7, 50, 2, f32, 1)))
+    cases.append(("staged float64 (2, 100, 5000, 3)", None,
+                  *cloud_lanes(2, 100, 5000, 3, f64, 1)))
     return cases
+
+
+def _time_nn(torch, q, t, mask, main: bool) -> dict:
+    """K1 and K2 on these inputs: ms per call (CUDA events) and per launch
+    from a CUDA graph (the device's time), each beside its bound, and the
+    graph's rate over all (query, target) pairs, masked ones included, in
+    tera-pairs per second.  At the main path's shapes, also the plain
+    version and the library yardstick."""
+    from icp_tpu_torch.ops import fused_nn, nn, pallas_nn
+
+    def k1():
+        return fused_nn.fused_nearest_neighbors(q, t, mask, return_coords=True)
+
+    def k2():
+        return pallas_nn.nearest_neighbors_pallas(q, t, mask)
+
+    ms = {"K1": _cuda_ms(torch, k1, 20), "K2": _cuda_ms(torch, k2, 20)}
+    if main:
+        ms["K1_plain"] = _cuda_ms(torch, lambda: fused_nn.plain_fused_nearest_neighbors(
+            q, t, mask, return_coords=True), 5)
+        ms["K2_plain"] = _cuda_ms(torch, lambda: nn.nearest_neighbors(q, t, mask), 5)
+    ms["K1_graph"] = _graph_ms(torch, k1)
+    ms["K2_graph"] = _graph_ms(torch, k2)
+    if main:
+        ms["library"] = _cuda_ms(torch, lambda: torch.cdist(
+            q, t, compute_mode="donot_use_mm_for_euclid_dist").min(-1), 5)
+    pairs = q.shape[0] * q.shape[1] * t.shape[1]
+    for k in ("K1", "K2"):
+        ms[f"{k}_bound"], ms[f"{k}_bound_by"], ms["all_pairs_bound"] = _bound(
+            q, t, mask, coords=k == "K1")
+        ms[f"{k}_pct_of_bound"] = 100 * ms[f"{k}_bound"] / ms[k]
+        ms[f"{k}_graph_Tpairs_s"] = pairs / ms[f"{k}_graph"] / 1e9
+    return ms
+
+
+def _ptxas_summary(text: str) -> str:
+    """ptxas' report of the build, one entry per kernel instance: type, D,
+    K1 (coordinates) or K2, registers, and spill stores / loads in bytes."""
+    out, name, spills = [], "?", "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"nn_kernelI([fd])Li(\d)ELb([01])E", m.group(1))
+            kernel = "K1" if t and t[3] == "1" else "K2"
+            name = (f"{'float' if t[1] == 'f' else 'double'} D={t[2]} {kernel}"
+                    if t else m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m[1]}/{m[2]}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{name}: {m[1]} registers, spills {spills} B")
+    return "; ".join(out) if out else "no ptxas report"
 
 
 def _bound(q, t, mask, coords: bool):
@@ -269,11 +334,12 @@ def main() -> int:
     _build.load("nn")
     build_s = time.perf_counter() - t0
     _say("build", f"{NN_SOURCE} {'loaded' if was_built else 'built'} in {build_s:.2f} s")
+    _say("ptxas", _ptxas_summary(_build.ptxas_log("nn").read_text()))
 
     # Phase 3: kernel vs plain version.
     errs = {"K1": 0.0, "K2": 0.0}
     timed = {}
-    for label, q, t, mask in _nn_cases(torch, np, dev):
+    for label, key, q, t, mask in _nn_cases(torch, np, dev):
         k1 = fused_nn.fused_nearest_neighbors(q, t, mask, return_coords=True)
         p1 = fused_nn.plain_fused_nearest_neighbors(q, t, mask, return_coords=True)
         k2 = pallas_nn.nearest_neighbors_pallas(q, t, mask)
@@ -290,28 +356,11 @@ def main() -> int:
             if not (torch.isinf(k1[0][0]).all() and (k1[1][0] == 0).all()):
                 raise AssertionError("all-masked lane must give (inf, 0)")
             line += ", masked lane (inf, 0)"
-        if label.startswith("main"):
-            ms = {
-                "K1": _cuda_ms(torch, lambda: fused_nn.fused_nearest_neighbors(
-                    q, t, mask, return_coords=True), 20),
-                "K1_plain": _cuda_ms(torch, lambda: fused_nn.plain_fused_nearest_neighbors(
-                    q, t, mask, return_coords=True), 5),
-                "K2": _cuda_ms(torch, lambda: pallas_nn.nearest_neighbors_pallas(q, t, mask), 20),
-                "K2_plain": _cuda_ms(torch, lambda: nn.nearest_neighbors(q, t, mask), 5),
-                "K1_graph": _graph_ms(torch, lambda: fused_nn.fused_nearest_neighbors(
-                    q, t, mask, return_coords=True)),
-                "K2_graph": _graph_ms(
-                    torch, lambda: pallas_nn.nearest_neighbors_pallas(q, t, mask)),
-                "library": _cuda_ms(torch, lambda: torch.cdist(
-                    q, t, compute_mode="donot_use_mm_for_euclid_dist").min(-1), 5),
-            }
-            for k in ("K1", "K2"):
-                ms[f"{k}_bound"], ms[f"{k}_bound_by"], ms["all_pairs_bound"] = _bound(
-                    q, t, mask, coords=k == "K1")
-                ms[f"{k}_pct_of_bound"] = 100 * ms[f"{k}_bound"] / ms[k]
+        if key is not None:
+            ms = _time_nn(torch, q, t, mask, main=key in ("fine", "coarse"))
             line += "; " + ", ".join(
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in ms.items())
-            timed[label.split()[1]] = ms
+            timed[key] = ms
         _say("kernel", line)
         del k1, p1, k2, p2
     torch.cuda.empty_cache()
@@ -404,7 +453,7 @@ def main() -> int:
 
     def entry(k, name, replaces):
         fine, coarse = timed["fine"], timed["coarse"]
-        return {
+        out = {
             "name": name, "route": "cuda", "source": NN_SOURCE, "replaces": replaces,
             "launches": launches[k], "max_abs_err": errs[k], "ms": fine[k],
             "graph_ms": fine[f"{k}_graph"], "plain_ms": fine[f"{k}_plain"],
@@ -416,6 +465,11 @@ def main() -> int:
             "coarse_bound_ms": coarse[f"{k}_bound"],
             "coarse_library_ms": coarse["library"],
         }
+        for shape in ("staged", "two_stages"):
+            out[f"{shape}_ms"] = timed[shape][k]
+            out[f"{shape}_graph_ms"] = timed[shape][f"{k}_graph"]
+            out[f"{shape}_bound_ms"] = timed[shape][f"{k}_bound"]
+        return out
 
     kernels = [entry("K1", "nn_coords (K1)", "icp_tpu/ops/fused_nn.py:70"),
                entry("K2", "nn (K2)", "icp_tpu/ops/pallas_nn.py:48")]

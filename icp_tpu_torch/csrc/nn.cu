@@ -61,40 +61,33 @@
 //   At D = 2 in float, with kChunk = 8 and kQ = 4, the chunk loop is 6.25
 //   instructions per pair: the 5 arithmetic ones, 0.625 for the minima,
 //   0.375 for the chunk bookkeeping, 0.125 each for the shared-memory loads
-//   and the loop.  It runs at about 80% of that issue rate (PERF.md).
+//   and the loop.  Its measured time is about 1.25x what that count takes
+//   at the sampled SM clock: ~80% of that issue rate, derived from the SASS
+//   count and the sampled clock, not profiled (PERF.md).
 //
 // Not used, and why:
 //   * Tensor cores.  wgmma needs the |q|^2 - 2 q.t + |t|^2 form, which cancels
 //     in float32 and is not bit-equal to the plain version (icp_tpu/ops/nn.py,
 //     pairwise_sq_dists), and D = 2 or 3 is far below its depth of 16.
-//   * cp.async double buffering of the stages.  Folding the mask needs the
-//     values in registers anyway, and a stage costs one global load per
-//     target against 2 kQ * blockDim pair computations on it; other resident
-//     blocks compute while one stages.
+//   * cp.async double buffering of the stages.  Staging costs nothing it
+//     could win back: on an H100 (chip_smoke.py, PERF.md), the fine shape's
+//     grid with two stages per lane, (1024, 1024, 8192, 2), runs 2% more
+//     pairs per second than the one-stage fine shape.  Few lanes with many
+//     targets, e.g. (2, 512, 40000, 2), are slow for another reason: one
+//     block per lane leaves most SMs idle.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
-// Build-time constants; scripts/nn_bench.py builds variants with -D to time them.
-#ifndef NN_THREADS
-#define NN_THREADS 128  // threads per block at most, a multiple of 32
-#endif
-#ifndef NN_QUERIES
-#define NN_QUERIES 4  // queries per thread
-#endif
-#ifndef NN_CHUNK
-#define NN_CHUNK 8  // targets per chunk minimum, a multiple of 4
-#endif
-
 namespace {
 
-constexpr int kThreads = NN_THREADS;
-constexpr int kQ = NN_QUERIES;
-constexpr int kChunk = NN_CHUNK;
-// A stage may take this share of the opt-in shared memory per block, so that
-// four blocks stay resident on an SM.
+constexpr int kThreads = 128;  // threads per block at most, a multiple of 32
+constexpr int kQ = 4;          // queries per thread
+constexpr int kChunk = 8;      // targets per chunk minimum, a multiple of 4
+// A stage may take this share of the SM's shared memory (less what CUDA
+// reserves per block), so that four blocks stay resident on an SM.
 constexpr int kBlocksPerSm = 4;
 static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
 static_assert(kChunk % 4 == 0, "a chunk holds whole packs, and pairs of pairs");
@@ -317,15 +310,22 @@ int launch(const void* query, const void* targets, const void* mask, void* out_s
   const int64_t blocks = int64_t(ceil_div(batch, lanes_per_block)) * blocks_per_lane;
   if (blocks > 0x7fffffff) return int(cudaErrorInvalidConfiguration);
 
-  int device = 0, optin = 0;
+  int device = 0, optin = 0, per_sm = 0, reserved = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
+  }
   if (err != cudaSuccess) return int(err);
   // The whole padded lane if it fits in the budget, else the largest
-  // multiple of kChunk that does.
-  const int budget = optin / kBlocksPerSm;
+  // multiple of kChunk that does.  On an H100: 233,472 / 4 - 1,024 = 57,344
+  // bytes, 7,168 float2 targets.
+  const int budget = std::min(optin, per_sm / kBlocksPerSm - reserved);
   const int cap = budget / (lanes_per_block * int(sizeof(P))) / kChunk * kChunk;
   const int stage = std::min(cap, ceil_div(std::max(m, 1), kChunk) * kChunk);
   if (stage <= 0) return int(cudaErrorInvalidValue);

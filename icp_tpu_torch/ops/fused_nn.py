@@ -83,8 +83,10 @@ def check_nn_inputs(query, targets, target_mask):
         raise ValueError("query, targets and target_mask must be contiguous")
 
 
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a library built from ``csrc/nn.cu``."""
+def _bind():
+    from .._build import load
+
+    lib = load("nn")
     fn = lib.icp_nn_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -92,12 +94,6 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.icp_nn_error_string.argtypes = [ctypes.c_int]
         lib.icp_nn_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _bind():
-    from .._build import load
-
-    return declare(load("nn"))
 
 
 def launch_nn_kernel(query, targets, target_mask, return_coords: bool):

@@ -210,11 +210,11 @@ def test_kernel_matches_plain_on_card(cuda_device, n, m, dim, dtype):
 
 
 @functools.cache
-def _kernel_knobs():
-    """``NN_THREADS``, ``NN_QUERIES`` and ``NN_CHUNK`` as ``csrc/nn.cu`` sets them."""
+def _kernel_constants():
+    """``kThreads``, ``kQ`` and ``kChunk`` as ``csrc/nn.cu`` sets them."""
     src = (CSRC / "nn.cu").read_text()
-    return tuple(int(re.search(rf"#define {k} (\d+)", src).group(1))
-                 for k in ("NN_THREADS", "NN_QUERIES", "NN_CHUNK"))
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("kThreads", "kQ", "kChunk"))
 
 
 def _sq_dist(q, t):
@@ -237,7 +237,7 @@ def _emulate_nn_kernel(q, t, mask, stage_budget):
     chunk, and the end of each stage rescans that chunk for its lowest index;
     coordinates are looked up once at the end.  Returns (sq, idx, coords).
     """
-    threads, kq, chunk = _kernel_knobs()
+    threads, kq, chunk = _kernel_constants()
     b, n, dim = q.shape
     m = t.shape[1]
     lane_threads = min(threads, math.ceil(math.ceil(n / kq) / 32) * 32)
