@@ -29,6 +29,29 @@
 5. Pose agreement: 32 of those lanes again on the CPU (``device="cpu"``:
    the entry points default to the card) in float64 with the plain version;
    the translation deviation must stay <= 2e-3 m.
+6. The 3D path: ``trimmed`` (max_distance 1.0) and ``vanilla`` 3D on the
+   10,720-point queen-scale PLY pair, B = 1, float32, through ``read_ply``,
+   ``from_points``, ``from_method`` and ``converge`` (100 iterations, 1e-4
+   rad, 1e-4 m).  Counts K1's launches in each run; trimmed must bring the
+   mean NN distance below 0.05 and below 0.2x its start, vanilla must lower
+   it.  Prints iterations, the median of 5 timed calls, the traced device
+   busy share, and the ms per call of each step of one iterate (with the
+   quaternion fit's kernel count).  Both methods again on the CPU in float64
+   (SVD): translation within 2e-3 m, rotation columns unit to 1e-5.
+7. The 2D method matrix (``bench.py::run_matrix``): ``vanilla``,
+   single-scale ``trimmed`` and ``feature_aware`` on scans 1-3, B = 256,
+   float32, capacity 1024 (scan2, with 1,090 points, at 1,096), the bench's
+   seeded guesses and driver config, through ``make_converge_fn``: pairs/s
+   (median of 3 after a warm-up), mean iterations and cost, kernel launches,
+   peak device memory.  8 lanes of scan1 per method against the CPU float64
+   run, gate 2e-3 m.
+
+Phase 3 also runs K1 and K2 on the queen-scale pair itself,
+(1, 10720, 10720, 3) float32, timed beside its bound, the plain version and
+the library yardstick, and on phase 7's inputs (scans 1-3 at B = 256 under
+its guesses: (256, 1024, 1024, 2) and scan2's (256, 1096, 1096, 2), whose
+last query block is ragged), exact.  Each phase prints its seconds; the
+kernels line lists every case held exact.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object of the kernels; the last line is
@@ -41,6 +64,7 @@ import json
 import math
 import os
 import re
+import resource
 import subprocess
 import sys
 import time
@@ -50,6 +74,9 @@ BATCH = 1024
 CAPACITY = 1024
 POSE_LANES = 32
 POSE_AGREEMENT_TOL_M = 2e-3
+MATRIX_BATCH = 256
+MATRIX_POSE_LANES = 8
+QUEEN = ("ex_data/ply/queen_scale_transformed.ply", "ex_data/ply/queen_scale.ply")
 NN_SOURCE = "icp_tpu_torch/csrc/nn.cu"
 # Published H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor
 # cores, and HBM3.
@@ -166,6 +193,21 @@ def _nn_cases(torch, np, dev):
                   *cloud_lanes(30, 7, 50, 2, f32, 1)))
     cases.append(("staged float64 (2, 100, 5000, 3)", None,
                   *cloud_lanes(2, 100, 5000, 3, f64, 1)))
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import geometry
+
+    q, t = (torch.tensor(icp.read_ply(os.path.join(REPO, p)), dtype=f32, device=dev)[None]
+            for p in QUEEN)
+    cases.append(("queen-scale PLY pair (1, 10720, 10720, 3) f32", "queen", q, t,
+                  torch.ones(t.shape[:-1], dtype=torch.bool, device=dev)))
+    # Phase 7's inputs: each scan's lanes moved by the matrix's guesses (the
+    # trimmed iterate's queries), against the target lanes and their masks.
+    _, _, guess = _matrix_guess(torch, np, icp, dev)
+    for scan in (1, 2, 3):
+        _, _, source, target = _matrix_pair(torch, icp, dev, scan)
+        q = geometry.apply(guess, source.points).contiguous()
+        cases.append((f"matrix scan{scan} {tuple(q.shape[:2]) + tuple(target.points.shape[1:])} "
+                      "f32", None, q, target.points, target.mask))
     return cases
 
 
@@ -266,10 +308,36 @@ def _trace(torch, run) -> str:
     return "\n".join(lines)
 
 
+def _step_ms(torch, steps: dict) -> str:
+    """Milliseconds per call of each step, over 20 calls ending in a
+    synchronise (so each number is whichever of host dispatch or device
+    work bounds it)."""
+    out = []
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        out.append(f"{name} {(time.perf_counter() - t0) / 20 * 1e3:.3f}")
+    return "ms per call: " + ", ".join(out)
+
+
+def _kernel_count(torch, fn) -> int:
+    """Device kernels (and copies) one call of ``fn`` runs, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
 def _iterate_steps(torch, icp, source, target, guess) -> str:
-    """Milliseconds per call of each step of one full-resolution trimmed
-    iterate at B = 1024, over 20 calls ending in a synchronise (so each
-    number is whichever of host dispatch or device work bounds it)."""
+    """Each step of one full-resolution trimmed iterate at B = 1024."""
     from icp_tpu_torch import geometry
     from icp_tpu_torch.methods.trimmed import trim_weights
     from icp_tpu_torch.ops import fused_nn
@@ -283,7 +351,7 @@ def _iterate_steps(torch, icp, source, target, guess) -> str:
     sq = torch.where(source.mask, sq, torch.full_like(sq, math.inf))
     weights = trim_weights(sq, source.count, 0.9, sq.dtype)
     step = fit_rigid(a_cur, coords, weights)
-    steps = {
+    return _step_ms(torch, {
         "apply": lambda: geometry.apply(state.transform, source.points),
         "nn kernel K1": lambda: fused_nn.fused_nearest_neighbors(
             a_cur, target.points, target.mask, return_coords=True),
@@ -292,17 +360,208 @@ def _iterate_steps(torch, icp, source, target, guess) -> str:
         "compose": lambda: geometry.compose(step, state.transform),
         "cost": lambda: method.cost(state),
         "whole iterate": lambda: method.iterate(state),
-    }
-    out = []
-    for name, fn in steps.items():
-        fn()
-        torch.cuda.synchronize()
+    })
+
+
+def _reset_launches():
+    from icp_tpu_torch.ops import fused_nn
+
+    fused_nn.LAUNCHES = fused_nn.COORD_LAUNCHES = 0
+
+
+def _read_launches() -> dict:
+    from icp_tpu_torch.ops import fused_nn
+
+    return {"K1": fused_nn.COORD_LAUNCHES, "K2": fused_nn.LAUNCHES - fused_nn.COORD_LAUNCHES}
+
+
+def _timed_runs(run, reps: int):
+    """``reps`` timed calls of ``run`` after one warm-up; the kernel launch
+    counts are zeroed just before the first timed call and read just after
+    it.  Returns (last result, seconds per call, launches)."""
+    run()
+    times = []
+    for rep in range(reps):
+        if rep == 0:
+            _reset_launches()
         t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        out.append(f"{name} {(time.perf_counter() - t0) / 20 * 1e3:.3f}")
-    return "ms per call: " + ", ".join(out)
+        result = run()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = _read_launches()
+    return result, times, launches
+
+
+def _mean_nn(torch, transform, source, target) -> float:
+    """Mean Euclidean distance from the moved source's valid points to their
+    nearest valid targets (``tests/test_ply_e2e.py``'s registration check)."""
+    from icp_tpu_torch import geometry
+    from icp_tpu_torch.ops import pallas_nn
+
+    moved = geometry.apply(transform, source.points).contiguous()
+    sq, _ = pallas_nn.nearest_neighbors_pallas(moved, target.points, target.mask)
+    return float(torch.sqrt(sq[: int(source.count)]).mean())
+
+
+def _iterate_steps_3d(torch, icp, source, target, dev) -> str:
+    """Each step of one trimmed 3D iterate at the queen scale, and the
+    quaternion fit's kernel count."""
+    from icp_tpu_torch import geometry
+    from icp_tpu_torch.ops import fused_nn
+    from icp_tpu_torch.ops.rigid_fit import fit_rigid
+
+    method = icp.from_method("trimmed", 3, icp.Config(max_distance=1.0))
+    state = method.iterate(method.init(source, target, icp.identity(3, dtype=source.dtype,
+                                                                   device=dev)))
+    sq, _, coords = fused_nn.fused_nearest_neighbors(
+        state.c, target.points, target.mask, return_coords=True)
+    weights = ((torch.sqrt(torch.sqrt(sq)) <= 1.0) & source.mask).to(sq.dtype)
+    step = fit_rigid(state.c, coords, weights, "quat")
+    fit_kernels = _kernel_count(torch, lambda: fit_rigid(state.c, coords, weights, "quat"))
+    iterate_kernels = _kernel_count(torch, lambda: method.iterate(state))
+    return _step_ms(torch, {
+        "nn kernel K1": lambda: fused_nn.fused_nearest_neighbors(
+            state.c, target.points, target.mask, return_coords=True),
+        "quaternion fit": lambda: fit_rigid(state.c, coords, weights, "quat"),
+        "apply": lambda: geometry.apply(step, state.c),
+        "compose": lambda: geometry.compose(step, state.transform),
+        "whole iterate": lambda: method.iterate(state),
+    }) + f"; kernels per call (torch.profiler): quaternion fit {fit_kernels}, " \
+         f"whole iterate {iterate_kernels}"
+
+
+def _phase_3d(torch, np, icp, dev) -> dict:
+    """Phase 6: trimmed and vanilla 3D on the queen-scale pair; returns the
+    K1/K2 launches of each method's run."""
+    src_pts, dst_pts = (icp.read_ply(os.path.join(REPO, p)) for p in QUEEN)
+    source = icp.from_points(src_pts, dtype=torch.float32, device=dev)
+    target = icp.from_points(dst_pts, dtype=torch.float32, device=dev)
+    s64 = icp.from_points(src_pts, dtype=torch.float64, device="cpu")
+    t64 = icp.from_points(dst_pts, dtype=torch.float64, device="cpu")
+    guess = icp.identity(3, dtype=torch.float32, device=dev)
+    cfg = icp.DriverConfig(max_iterations=100, angle_tolerance=1e-4, translation_tolerance=1e-4)
+    before = _mean_nn(torch, guess, source, target)
+    launches = {}
+    for name, config in (("trimmed", icp.Config(max_distance=1.0)), ("vanilla", icp.Config())):
+        method = icp.from_method(name, 3, config)
+
+        def run():
+            out, _ = icp.converge(method, source, target, guess, cfg)
+            float(out.transform.translation.sum())  # waits for the device
+            return out
+
+        result, times, launches[name] = _timed_runs(run, 5)
+        if launches[name]["K1"] <= 0:
+            raise AssertionError(f"{name} 3D did not launch K1: {launches[name]}")
+        rot, trans = result.transform.rotation, result.transform.translation
+        if rot.shape != (3, 3) or not (torch.isfinite(rot).all() and torch.isfinite(trans).all()):
+            raise AssertionError(f"{name} 3D: bad pose {rot}, {trans}")
+        after = _mean_nn(torch, result.transform, source, target)
+        if name == "trimmed" and not (after < 0.05 and after < 0.2 * before):
+            raise AssertionError(f"trimmed 3D: mean NN {before} -> {after}")
+        if not after < before:
+            raise AssertionError(f"{name} 3D: mean NN did not fall, {before} -> {after}")
+        med = float(np.median(times))
+        _say("3d", f"queen-scale {name} 3D B=1 f32: iterations {int(result.iteration_count)}, "
+                   f"median of {len(times)} {med * 1e3:.2f} ms (runs ms "
+                   f"{', '.join(f'{x * 1e3:.2f}' for x in times)}), mean NN distance "
+                   f"{before:.6e} -> {after:.6e}, launches {launches[name]}")
+        _say("3d-trace", f"{name}: " + _trace(torch, run))
+        t0 = time.perf_counter()
+        cpu, _ = icp.converge(method, s64, t64, icp.identity(3, device="cpu"), cfg)
+        cpu_s = time.perf_counter() - t0
+        rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        max_dt = float(torch.linalg.vector_norm(trans.double().cpu() - cpu.transform.translation))
+        col_drift = float((torch.linalg.vector_norm(rot.double(), dim=-2) - 1).abs().max())
+        _say("3d-pose", f"{name}: CUDA f32 (quat) vs CPU f64 (svd): |dt| {max_dt:.3e} m (gate "
+                        f"{POSE_AGREEMENT_TOL_M}), rotation max ||col|-1| {col_drift:.3e}, "
+                        f"iterations {int(result.iteration_count)} vs "
+                        f"{int(cpu.iteration_count)}; CPU run {cpu_s:.1f} s, process peak RSS "
+                        f"{rss_gib:.2f} GiB")
+        if not (max_dt <= POSE_AGREEMENT_TOL_M and col_drift <= 1e-5):
+            raise AssertionError(f"{name} 3D pose agreement failed: {max_dt}, {col_drift}")
+    _say("3d-steps", _iterate_steps_3d(torch, icp, source, target, dev))
+    return launches
+
+
+def _matrix_guess(torch, np, icp, dev):
+    """The bench's seeded guesses for the matrix's B = 256 lanes."""
+    rng = np.random.default_rng(0)
+    angles = rng.uniform(-0.05, 0.05, MATRIX_BATCH).astype(np.float32)
+    shifts = rng.uniform(-0.2, 0.2, (MATRIX_BATCH, 2)).astype(np.float32)
+    guess = icp.from_angle_2d(torch.tensor(angles, device=dev), torch.tensor(shifts, device=dev))
+    return angles, shifts, guess
+
+
+def _matrix_pair(torch, icp, dev, scan: int):
+    """Scan ``scan``'s pair as the matrix runs it: B = 256 float32 lanes at
+    capacity 1024, or at the scan's size rounded up to 8 where it is larger."""
+    from icp_tpu_torch.cloud import round_up
+
+    pts = [icp.io.parse_lidar_scan_array(os.path.join(REPO, f"ex_data/scan{scan}/{f}.csv"))
+           for f in ("first", "second")]
+    cap = max(CAPACITY, *(round_up(len(p), 8) for p in pts))
+    source, target = (
+        icp.stack([icp.from_points(p, capacity=cap, dtype=torch.float32, device=dev)]
+                  * MATRIX_BATCH) for p in pts)
+    return pts, cap, source, target
+
+
+def _phase_matrix(torch, np, icp, dev) -> dict:
+    """Phase 7: every reference 2D method x scans 1-3 at B = 256; returns
+    each cell's launches."""
+    angles, shifts, guess = _matrix_guess(torch, np, icp, dev)
+    cfg = icp.DriverConfig(
+        max_iterations=50, angle_tolerance=0.1 * math.pi / 180, translation_tolerance=0.01
+    )
+    lanes = np.arange(0, MATRIX_BATCH, MATRIX_BATCH // MATRIX_POSE_LANES)
+    launches, scan1 = {}, {}
+    for name in ("vanilla", "trimmed", "feature_aware"):
+        method = icp.from_method(name, 2, icp.Config())
+        fn = icp.make_converge_fn(method, cfg)
+        for scan in (1, 2, 3):
+            pts, cap, source, target = _matrix_pair(torch, icp, dev, scan)
+
+            def run():
+                out, _ = fn(source, target, guess)
+                float(out.cost.sum())  # waits for the device
+                return out
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            result, times, cell = _timed_runs(run, 3)
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches[f"{name}/scan{scan}"] = cell
+            if name != "feature_aware" and cell["K2"] <= 0:
+                raise AssertionError(f"{name} scan{scan}: init did not launch K2: {cell}")
+            rot, trans = result.transform.rotation, result.transform.translation
+            if not (torch.isfinite(rot).all() and torch.isfinite(trans).all()
+                    and torch.isfinite(result.cost).all()):
+                raise AssertionError(f"{name} scan{scan}: non-finite poses or costs")
+            med = float(np.median(times))
+            _say("matrix", f"{name} scan{scan} B={MATRIX_BATCH} cap {cap}: "
+                           f"{MATRIX_BATCH / med:.2f} pairs/s (median of {len(times)}: "
+                           f"{med * 1e3:.2f} ms; runs ms "
+                           f"{', '.join(f'{x * 1e3:.2f}' for x in times)}), mean iterations "
+                           f"{float(result.iteration_count.float().mean()):.4f} (max "
+                           f"{int(result.iteration_count.max())}), mean cost "
+                           f"{float(result.cost.mean()):.6f}, launches {cell}, peak device "
+                           f"memory {peak / 2**30:.3f} GiB")
+            if scan == 1:
+                scan1[name] = (pts, cap, trans[torch.as_tensor(lanes, device=dev)].double().cpu())
+            del source, target, result
+            torch.cuda.empty_cache()
+    for name, (pts, cap, t_gpu) in scan1.items():
+        src, tgt = (icp.stack([icp.from_points(p, capacity=cap, device="cpu")]
+                              * len(lanes)) for p in pts)
+        g64 = icp.from_angle_2d(torch.tensor(angles[lanes], dtype=torch.float64),
+                                torch.tensor(shifts[lanes], dtype=torch.float64))
+        cpu, _ = icp.make_converge_fn(icp.from_method(name, 2), cfg)(src, tgt, g64)
+        max_dt = float(torch.linalg.vector_norm(t_gpu - cpu.transform.translation, dim=-1).max())
+        _say("matrix-pose", f"{name} scan1, {len(lanes)} lanes, CUDA f32 vs CPU f64: max |dt| "
+                            f"{max_dt:.3e} m (gate {POSE_AGREEMENT_TOL_M})")
+        if not max_dt <= POSE_AGREEMENT_TOL_M:
+            raise AssertionError(f"{name} pose agreement failed: {max_dt}")
+    return launches
 
 
 def main() -> int:
@@ -316,6 +575,14 @@ def main() -> int:
     from icp_tpu_torch import _build
     from icp_tpu_torch.ops import fused_nn, nn, pallas_nn
 
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        phase_s[name] = round(time.perf_counter() - t_phase, 2)
+        t_phase = time.perf_counter()
+
     # Phase 1: device and TF32.
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -327,6 +594,7 @@ def main() -> int:
         raise AssertionError("TF32 is on; the package must turn it off")
     _say("device", f"{kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, TF32 off")
     dev = torch.device("cuda", 0)
+    phase_done("1 device")
 
     # Phase 2: build.
     t0 = time.perf_counter()
@@ -335,10 +603,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _say("build", f"{NN_SOURCE} {'loaded' if was_built else 'built'} in {build_s:.2f} s")
     _say("ptxas", _ptxas_summary(_build.ptxas_log("nn").read_text()))
+    phase_done("2 build")
 
     # Phase 3: kernel vs plain version.
     errs = {"K1": 0.0, "K2": 0.0}
-    timed = {}
+    timed, exact_cases = {}, []
     for label, key, q, t, mask in _nn_cases(torch, np, dev):
         k1 = fused_nn.fused_nearest_neighbors(q, t, mask, return_coords=True)
         p1 = fused_nn.plain_fused_nearest_neighbors(q, t, mask, return_coords=True)
@@ -347,6 +616,7 @@ def main() -> int:
         torch.cuda.synchronize()
         errs["K1"] = max(errs["K1"], _compare(torch, k1, p1, f"K1 {label}"))
         errs["K2"] = max(errs["K2"], _compare(torch, k2, p2, f"K2 {label}"))
+        exact_cases.append(label)
         line = f"{label}: K1 and K2 exact (idx, coords, sq bits)"
         if label.startswith("ties"):
             if int(k1[1].max()) >= 64 or int(k2[1].max()) >= 64:
@@ -357,13 +627,14 @@ def main() -> int:
                 raise AssertionError("all-masked lane must give (inf, 0)")
             line += ", masked lane (inf, 0)"
         if key is not None:
-            ms = _time_nn(torch, q, t, mask, main=key in ("fine", "coarse"))
+            ms = _time_nn(torch, q, t, mask, main=key in ("fine", "coarse", "queen"))
             line += "; " + ", ".join(
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in ms.items())
             timed[key] = ms
         _say("kernel", line)
         del k1, p1, k2, p2
     torch.cuda.empty_cache()
+    phase_done("3 kernels")
 
     # Phase 4: the main path.
     data = os.path.join(REPO, "ex_data")
@@ -388,17 +659,7 @@ def main() -> int:
         float(out.cost.sum())  # waits for the device
         return out
 
-    run()  # warm-up
-    times = []
-    for rep in range(5):
-        if rep == 0:
-            fused_nn.LAUNCHES = fused_nn.COORD_LAUNCHES = 0
-        t0 = time.perf_counter()
-        result = run()
-        times.append(time.perf_counter() - t0)
-        if rep == 0:
-            launches = {"K1": fused_nn.COORD_LAUNCHES,
-                        "K2": fused_nn.LAUNCHES - fused_nn.COORD_LAUNCHES}
+    result, times, launches = _timed_runs(run, 5)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the main path did not launch every kernel: {launches}")
     rot, trans = result.transform.rotation, result.transform.translation
@@ -423,6 +684,7 @@ def main() -> int:
 
     _say("trace", _trace(torch, run))
     _say("steps", _iterate_steps(torch, icp, source, target, guess))
+    phase_done("4 main path")
 
     # Phase 5: pose agreement with the CPU float64 run.
     lanes = np.arange(0, BATCH, BATCH // POSE_LANES)
@@ -450,12 +712,27 @@ def main() -> int:
     )
     if not max_dt <= POSE_AGREEMENT_TOL_M:
         raise AssertionError(f"pose agreement failed: {max_dt} > {POSE_AGREEMENT_TOL_M}")
+    del source, target, result, rot, trans
+    torch.cuda.empty_cache()
+    phase_done("5 pose")
+
+    # Phase 6: the 3D path; phase 7: the 2D method matrix.
+    paths = {"trimmed_2d_multiscale": launches}
+    for name, cell in _phase_3d(torch, np, icp, dev).items():
+        paths[f"{name}_3d"] = cell
+    phase_done("6 3d path")
+    for name, cell in _phase_matrix(torch, np, icp, dev).items():
+        paths[f"matrix {name}"] = cell
+    phase_done("7 matrix")
+    _say("seconds", ", ".join(f"phase {k} {v}" for k, v in phase_s.items()))
 
     def entry(k, name, replaces):
-        fine, coarse = timed["fine"], timed["coarse"]
+        fine, coarse, queen = timed["fine"], timed["coarse"], timed["queen"]
         out = {
             "name": name, "route": "cuda", "source": NN_SOURCE, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": errs[k], "ms": fine[k],
+            "launches": launches[k],
+            "launches_by_path": {path: cell[k] for path, cell in paths.items()},
+            "max_abs_err": errs[k], "exact_cases": exact_cases, "ms": fine[k],
             "graph_ms": fine[f"{k}_graph"], "plain_ms": fine[f"{k}_plain"],
             "bound_ms": fine[f"{k}_bound"], "bound_by": fine[f"{k}_bound_by"],
             "pct_of_bound": fine[f"{k}_pct_of_bound"],
@@ -464,6 +741,11 @@ def main() -> int:
             "coarse_graph_ms": coarse[f"{k}_graph"], "coarse_plain_ms": coarse[f"{k}_plain"],
             "coarse_bound_ms": coarse[f"{k}_bound"],
             "coarse_library_ms": coarse["library"],
+            "queen_ms": queen[k], "queen_graph_ms": queen[f"{k}_graph"],
+            "queen_plain_ms": queen[f"{k}_plain"], "queen_bound_ms": queen[f"{k}_bound"],
+            "queen_bound_by": queen[f"{k}_bound_by"],
+            "queen_pct_of_bound": queen[f"{k}_pct_of_bound"],
+            "queen_library_ms": queen["library"],
         }
         for shape in ("staged", "two_stages"):
             out[f"{shape}_ms"] = timed[shape][k]

@@ -1,7 +1,10 @@
 """icp_tpu_torch — the PyTorch / CUDA port of :mod:`icp_tpu`.
 
-Batched 2D trimmed ICP on tensors, with the exact masked 1-NN
-correspondence as a CUDA kernel for Hopper (``csrc/nn.cu``, built with
+Batched ICP on tensors: the five reference methods (2D ``vanilla``,
+``trimmed``, ``feature_aware``; 3D ``vanilla``, ``trimmed``), the
+convergence drivers, multiscale registration, the scan/sweep/PLY readers and
+a ``register`` CLI (``python -m icp_tpu_torch.cli``).  The exact masked 1-NN
+correspondence is a CUDA kernel for Hopper (``csrc/nn.cu``, built with
 ``nvcc`` at first use).  The JAX package is the reference each module is
 tested against.  The entry points put their tensors on the card unless the
 caller passes ``device="cpu"``.  Dtype policy: float64 on the CPU, float32 on
@@ -11,11 +14,18 @@ Quick start (on the card, in float32)::
 
     import icp_tpu_torch as icp
 
-    a = icp.from_points(icp.io.parse_lidar_scan_array("ex_data/scan1/first.csv"))
-    b = icp.from_points(icp.io.parse_lidar_scan_array("ex_data/scan1/second.csv"))
+    a = icp.parse_lidar_scan("ex_data/scan1/first.csv")
+    b = icp.parse_lidar_scan("ex_data/scan1/second.csv")
     cfg = icp.DriverConfig(max_iterations=50, angle_tolerance=0.1 * 3.14159 / 180,
                            translation_tolerance=0.01)
     result, _ = icp.converge(icp.from_method("trimmed", 2), a, b, icp.identity(2), cfg)
+
+    # 3D: PLY clouds
+    src = icp.from_points(icp.read_ply("ex_data/ply/queen_scale_transformed.ply"))
+    dst = icp.from_points(icp.read_ply("ex_data/ply/queen_scale.ply"))
+    cfg3 = icp.DriverConfig(max_iterations=100, angle_tolerance=1e-4,
+                            translation_tolerance=1e-4)
+    result, _ = icp.converge(icp.from_method("trimmed", 3), src, dst, icp.identity(3), cfg3)
 """
 
 import torch
@@ -23,9 +33,17 @@ import torch
 from . import cloud, convert, driver, geometry, io, methods, multiscale, ops
 from .cloud import PointCloud, bucket_capacity, from_points, pad_to, stack, to_numpy
 from .config import Config
-from .driver import ConvergenceState, DriverConfig, converge
+from .driver import ConvergenceState, DriverConfig, converge, converge_stepped, make_converge_fn
 from .geometry import RigidTransform, apply, compose, from_angle_2d, identity, inverse
-from .methods import from_method, get_matches, is_method_registered, registered_methods
+from .io import parse_lidar_scan, read_ply, write_ply
+from .methods import (
+    Matches,
+    from_method,
+    get_matches,
+    is_method_registered,
+    register_method,
+    registered_methods,
+)
 from .multiscale import converge_multiscale
 
 # Pose math needs full float32 precision: TF32 pushes composed rotations off
@@ -39,6 +57,7 @@ __all__ = [
     "Config",
     "ConvergenceState",
     "DriverConfig",
+    "Matches",
     "PointCloud",
     "RigidTransform",
     "apply",
@@ -47,6 +66,7 @@ __all__ = [
     "compose",
     "converge",
     "converge_multiscale",
+    "converge_stepped",
     "convert",
     "driver",
     "from_angle_2d",
@@ -58,11 +78,16 @@ __all__ = [
     "inverse",
     "io",
     "is_method_registered",
+    "make_converge_fn",
     "methods",
     "multiscale",
     "ops",
     "pad_to",
+    "parse_lidar_scan",
+    "read_ply",
+    "register_method",
     "registered_methods",
     "stack",
     "to_numpy",
+    "write_ply",
 ]

@@ -3,9 +3,11 @@
 Port of :mod:`icp_tpu.driver` (``ICPDriver<Dim>``,
 ``include/icp/driver.h:20-236``).  The JAX package's ``lax.while_loop``
 becomes a Python loop that reads ``active.any()`` once per iteration (one
-host sync each).  Every lane terminates on its own: a terminated lane is
-frozen (its state, cost and iteration count stop changing), so per-lane
-results equal a sequential per-pair run.
+host sync each), so :func:`converge` and :func:`converge_stepped` share one
+loop and differ only in the time limit, which the stepped driver checks on
+the host before each step.  Every lane terminates on its own: a terminated
+lane is frozen (its state, cost and iteration count stop changing), so
+per-lane results equal a sequential per-pair run.
 
 Termination criteria, in the order of ``should_terminate``
 (``driver.h:154-222``):
@@ -13,7 +15,7 @@ Termination criteria, in the order of ``should_terminate``
 1. ``min_iterations`` not yet reached        -> keep going (overrides all)
 2. ``max_iterations`` reached                -> stop
 3. ``cost < stop_cost``                      -> stop
-4. (time limit: not in this driver)
+4. ``time_limit`` exceeded (``converge_stepped`` only; all lanes at once)
 5. no previous state yet                     -> keep going
 6. ``|Δcost| < absolute_cost_tolerance``     -> stop
 7. ``|Δcost| / cost < relative_cost_tol``    -> stop  (0/0 is NaN: false)
@@ -27,6 +29,7 @@ The check runs once before the first iteration on the initial cost
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
@@ -49,7 +52,7 @@ class DriverConfig:
     relative_cost_tolerance: float | None = None
     angle_tolerance: float | None = None  # radians; set with translation_tolerance
     translation_tolerance: float | None = None
-    time_limit: float | None = None  # seconds; not supported by converge
+    time_limit: float | None = None  # seconds; converge_stepped only
 
     def __post_init__(self):
         if (self.angle_tolerance is None) != (self.translation_tolerance is None):
@@ -133,18 +136,16 @@ def _freeze(active: torch.Tensor, new, old):
     raise TypeError(f"cannot freeze a {type(new).__name__}")
 
 
-def converge(
+def _loop(
     method: Method,
     source: PointCloud,
     target: PointCloud,
     guess: RigidTransform,
     config: DriverConfig,
 ) -> tuple[ConvergenceState, Any]:
-    """Run ICP until every lane has terminated (``ICPDriver::converge``,
-    ``driver.h:51-72``, batched).  Returns ``(ConvergenceState, final method
-    state)``.  ``time_limit`` is not supported here."""
-    if config.time_limit is not None:
-        raise ValueError("time_limit is not supported by converge (no stepped driver yet)")
+    """The driver loop of :func:`converge` and :func:`converge_stepped`;
+    ``config.time_limit``, when set, is checked on the host before each step
+    against the time since the loop began."""
     if not (source.dim == target.dim == guess.dim == method.dim):
         raise ValueError(
             f"dimension mismatch: source {source.dim}D, target {target.dim}D, "
@@ -156,7 +157,7 @@ def converge(
         if f.name != "min_iterations"
     ):
         raise ValueError("no termination criterion set; the loop would never end")
-
+    start = time.monotonic()
     state = method.init(source, target, guess)
     cost = method.cost(state)
     iteration = torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
@@ -165,6 +166,8 @@ def converge(
         config, cost, iteration, state.transform, has_last, cost, state.transform
     )
     while bool(active.any()):
+        if config.time_limit is not None and time.monotonic() - start > config.time_limit:
+            break
         last_cost, last_transform = cost, state.transform
         new_state = method.iterate(state)
         new_cost = method.cost(new_state)
@@ -176,3 +179,43 @@ def converge(
             config, cost, iteration, state.transform, has_last, last_cost, last_transform
         )
     return ConvergenceState(cost, iteration, state.transform), state
+
+
+def converge(
+    method: Method,
+    source: PointCloud,
+    target: PointCloud,
+    guess: RigidTransform,
+    config: DriverConfig,
+) -> tuple[ConvergenceState, Any]:
+    """Run ICP until every lane has terminated (``ICPDriver::converge``,
+    ``driver.h:51-72``, batched).  Returns ``(ConvergenceState, final method
+    state)``.  ``time_limit`` is refused, as in the JAX package: use
+    :func:`converge_stepped`."""
+    if config.time_limit is not None:
+        raise ValueError("time_limit requires the host-stepped driver (converge_stepped)")
+    return _loop(method, source, target, guess, config)
+
+
+def converge_stepped(
+    method: Method,
+    source: PointCloud,
+    target: PointCloud,
+    guess: RigidTransform,
+    config: DriverConfig,
+) -> tuple[ConvergenceState, Any]:
+    """:func:`converge` with ``time_limit`` (seconds, checked on the host
+    before each step, as ``driver.h:169-174``; when it is exceeded every lane
+    stops).  Per-lane freezing is :func:`converge`'s."""
+    return _loop(method, source, target, guess, config)
+
+
+def make_converge_fn(method: Method, config: DriverConfig):
+    """``(source, target, guess) -> (ConvergenceState, state)`` with the
+    method and driver config bound (the JAX package's jitted closure; here a
+    plain one)."""
+
+    def fn(source: PointCloud, target: PointCloud, guess: RigidTransform):
+        return converge(method, source, target, guess, config)
+
+    return fn

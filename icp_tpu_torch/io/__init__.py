@@ -1,5 +1,16 @@
-"""Input parsers (numpy only)."""
+"""Input parsers (numpy, then tensors on the card unless ``device="cpu"``)."""
 
-from .scan_csv import parse_lidar_scan_array
+from .ply import read_ply, write_ply
+from .scan_conf import parse_sweep, parse_sweep_conf, sweep_to_points
+from .scan_csv import parse_lidar_scan, parse_lidar_scan_array, parse_lidar_scan_batch
 
-__all__ = ["parse_lidar_scan_array"]
+__all__ = [
+    "parse_lidar_scan",
+    "parse_lidar_scan_array",
+    "parse_lidar_scan_batch",
+    "parse_sweep",
+    "parse_sweep_conf",
+    "read_ply",
+    "sweep_to_points",
+    "write_ply",
+]

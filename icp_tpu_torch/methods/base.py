@@ -26,13 +26,26 @@ from ..geometry import RigidTransform
 
 @dataclasses.dataclass(frozen=True)
 class Method:
-    """A registered ICP method: plain init/iterate/cost over a state."""
+    """A registered ICP method: plain init/iterate/cost over a state.
+
+    ``precompute``/``with_precomputed`` (optional) expose per-cloud derived
+    data that ``init`` would otherwise recompute (normals, surfel
+    covariances): ``precompute(cloud)`` returns it for a (batched) cloud, and
+    ``with_precomputed(aux_source, aux_target)`` returns a Method whose
+    ``init`` consumes it, so a sequential pipeline computes it once per scan.
+    ``precompute_source`` is False for methods that derive data from the
+    target only; they accept ``with_precomputed(None, aux_target)``.  None of
+    the five reference methods uses them.
+    """
 
     name: str
     dim: int
     init: Callable[[PointCloud, PointCloud, RigidTransform], Any]
     iterate: Callable[[Any], Any]
     cost: Callable[[Any], torch.Tensor]
+    precompute: Callable[[PointCloud], Any] | None = None
+    with_precomputed: Callable[[Any, Any], "Method"] | None = None
+    precompute_source: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +60,8 @@ class Matches:
 
 
 def get_matches(state) -> Matches | None:
-    """The current match set of a method state, or None if it tracks none."""
+    """The current match set of a method state, or None if it tracks none
+    (the 3D methods, whose matches the reference never fills)."""
     idx = getattr(state, "match_idx", None)
     cost = getattr(state, "match_cost", None)
     if idx is None or cost is None:
@@ -55,6 +69,14 @@ def get_matches(state) -> Matches | None:
     n = idx.shape[-1]
     src = torch.arange(n, dtype=torch.int32, device=idx.device).expand(idx.shape)
     return Matches(source_idx=src, target_idx=idx, cost=cost, valid=state.source.mask)
+
+
+def lane_targets(target: PointCloud, lead: torch.Size) -> tuple[torch.Tensor, torch.Tensor]:
+    """Target points and mask expanded to the queries' leading dims and made
+    contiguous, as the NN kernel takes them (one target set per lane)."""
+    points = target.points.expand(*lead, *target.points.shape[-2:]).contiguous()
+    mask = target.mask.expand(*lead, target.capacity).contiguous()
+    return points, mask
 
 
 MethodFactory = Callable[[Config], Method]

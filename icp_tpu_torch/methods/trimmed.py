@@ -30,7 +30,7 @@ from ..ops.fused_nn import fused_nearest_neighbors
 from ..ops.pallas_nn import nearest_neighbors_pallas
 from ..ops.rigid_fit import fit_rigid
 from ..ops.select import select_smallest_weights
-from .base import Method
+from .base import Method, lane_targets
 
 DEFAULT_OVERLAP_RATE = 0.9  # ``trimmed.cpp:28``
 
@@ -94,13 +94,6 @@ def trim_weights(
     return selected * torch.isfinite(costs).to(dtype)
 
 
-def _lane_targets(target: PointCloud, lead: torch.Size):
-    """Target points and mask with the query's leading dims, contiguous."""
-    points = target.points.expand(*lead, *target.points.shape[-2:]).contiguous()
-    mask = target.mask.expand(*lead, target.capacity).contiguous()
-    return points, mask
-
-
 def _masked_cost(sq: torch.Tensor, source: PointCloud) -> torch.Tensor:
     return sq.masked_fill(~source.mask, float("inf"))
 
@@ -110,14 +103,14 @@ def create(config: Config) -> Method:
 
     def init(source: PointCloud, target: PointCloud, guess: RigidTransform) -> TrimmedState:
         a_current = geometry.apply(guess, source.points)
-        points, mask = _lane_targets(target, a_current.shape[:-2])
+        points, mask = lane_targets(target, a_current.shape[:-2])
         sq, idx = nearest_neighbors_pallas(a_current, points, mask)
         return TrimmedState(guess, source, target, idx, _masked_cost(sq, source))
 
     def iterate(state: TrimmedState) -> TrimmedState:
         src, tgt = state.source, state.target
         a_current = geometry.apply(state.transform, src.points)
-        points, mask = _lane_targets(tgt, a_current.shape[:-2])
+        points, mask = lane_targets(tgt, a_current.shape[:-2])
         sq, idx, coords = fused_nearest_neighbors(a_current, points, mask, return_coords=True)
         sq = _masked_cost(sq, src)
         weights = trim_weights(sq, src.count, overlap_rate, src.dtype)

@@ -98,3 +98,102 @@ def test_rotation_3d_svd_fixes_reflection():
 def test_rotation_from_h_rejects_other_dimensions():
     with pytest.raises(ValueError):
         trf._rotation_from_h(torch.eye(4, dtype=torch.float64)[None])
+
+
+def _covariances(kind, dtype):
+    """Batched 3x3 cross-covariances: seeded random, rank-deficient (from
+    planar points) and zero."""
+    rng = np.random.default_rng({"random": 11, "planar": 12, "zero": 13}[kind])
+    if kind == "random":
+        h = rng.normal(size=(6, 3, 3))
+    elif kind == "planar":
+        a = rng.uniform(-5, 5, (6, 50, 3))
+        a[..., 2] = 0.0  # every source point in the z = 0 plane
+        rot = np.stack([_rotation(rng, 3) for _ in range(6)])
+        b = a @ rot.transpose(0, 2, 1)
+        a_c = a - a.mean(1, keepdims=True)
+        b_c = b - b.mean(1, keepdims=True)
+        h = a_c.transpose(0, 2, 1) @ b_c
+        assert np.allclose(np.linalg.matrix_rank(h), 2)
+    else:
+        h = np.zeros((3, 3, 3))
+    return h.astype(dtype)
+
+
+QUAT_CASES = [(kind, dtype) for kind in ("random", "planar", "zero")
+              for dtype in (np.float64, np.float32)]
+
+
+@pytest.mark.parametrize("kind,dtype", QUAT_CASES, ids=lambda x: getattr(x, "__name__", x))
+def test_jacobi_eigh_matches_jax(kind, dtype):
+    """The 4x4 ``K`` matrices of Horn's method through both Jacobi solvers:
+    eigenvalues always; eigenvectors (up to sign) where the eigenvalues are
+    distinct, since one ulp of atan2/cos between XLA and torch may turn a
+    degenerate eigenspace."""
+    atol = 1e-12 if dtype == np.float64 else 1e-5
+    h = _covariances(kind, dtype)
+    k = _horn_k(h)
+    want_vals, want_vecs = (np.asarray(x) for x in jrf._jacobi_eigh_sym(jnp.asarray(k)))
+    got_vals, got_vecs = trf._jacobi_eigh_sym(torch.from_numpy(k))
+    assert got_vals.dtype == torch.from_numpy(k).dtype
+    scale = max(1.0, float(np.abs(want_vals).max()))
+    np.testing.assert_allclose(got_vals.numpy(), want_vals, atol=atol * scale)
+    for lane in range(len(k)):
+        vals = np.sort(want_vals[lane])
+        if np.min(np.diff(vals)) < 1e-3 * scale:
+            continue
+        dots = np.abs(np.sum(got_vecs.numpy()[lane] * want_vecs[lane], axis=0))
+        np.testing.assert_allclose(dots, 1.0, atol=atol * 10)
+
+
+def _horn_k(h):
+    """Horn's symmetric 4x4 ``K`` of each 3x3 ``H``."""
+    (xx, xy, xz), (yx, yy, yz), (zx, zy, zz) = (h[..., i, :].T for i in range(3))
+    k = np.array([
+        [xx + yy + zz, yz - zy, zx - xz, xy - yx],
+        [yz - zy, xx - yy - zz, xy + yx, zx + xz],
+        [zx - xz, xy + yx, yy - xx - zz, yz + zy],
+        [xy - yx, zx + xz, yz + zy, zz - xx - yy],
+    ])
+    return np.ascontiguousarray(np.moveaxis(k, -1, 0))
+
+
+@pytest.mark.parametrize("kind,dtype", QUAT_CASES, ids=lambda x: getattr(x, "__name__", x))
+def test_quaternion_rotation_matches_jax(kind, dtype):
+    atol = 1e-12 if dtype == np.float64 else 1e-5
+    h = _covariances(kind, dtype)
+    want = np.asarray(jrf.rotation_from_covariance_3d_quat(jnp.asarray(h)))
+    got = trf.rotation_from_covariance_3d_quat(torch.from_numpy(h))
+    assert got.dtype == torch.from_numpy(h).dtype
+    np.testing.assert_allclose(got.numpy(), want, atol=atol)
+    np.testing.assert_allclose(np.linalg.det(got.numpy().astype(np.float64)), 1.0, atol=atol * 10)
+    if kind == "zero":
+        np.testing.assert_array_equal(got.numpy(), np.broadcast_to(np.eye(3), h.shape))
+    if kind == "random":  # a unique optimum: quat and svd agree
+        svd = trf.rotation_from_covariance_3d_svd(torch.from_numpy(h.astype(np.float64)))
+        np.testing.assert_allclose(got.numpy(), svd.numpy(), atol=atol * 10)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("solver", ["svd", "quat", "auto"])
+def test_solver_choice_matches_jax(solver, dtype):
+    """``fit_rigid(..., solver)`` takes the JAX package's path: ``auto`` is
+    svd in float64 and quat in float32."""
+    src, tgt, w = _problem(3, "binary", seed=7)
+    src, tgt, w = (x.astype(dtype) for x in (src, tgt, w))
+    want = jrf.fit_rigid(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(w), solver=solver)
+    got = trf.fit_rigid(*(torch.from_numpy(x) for x in (src, tgt, w)), solver=solver)
+    atol = 1e-12 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(got.rotation.numpy(), np.asarray(want.rotation), atol=atol)
+    np.testing.assert_allclose(got.translation.numpy(), np.asarray(want.translation),
+                               atol=atol * 10)
+    h = trf.cross_covariance(*(torch.from_numpy(x) for x in (src, tgt, w)))[0]
+    expect = {"svd": "svd", "quat": "quat",
+              "auto": "svd" if dtype == np.float64 else "quat"}[solver]
+    direct = getattr(trf, f"rotation_from_covariance_3d_{expect}")(h)
+    assert torch.equal(trf._rotation_from_h(h, solver), direct)
+
+
+def test_unknown_solver_raises():
+    with pytest.raises(ValueError, match="unknown solver"):
+        trf._rotation_from_h(torch.zeros(1, 3, 3), "eig")
