@@ -46,12 +46,30 @@
    peak device memory.  8 lanes of scan1 per method against the CPU float64
    run, gate 2e-3 m.
 
+8. The net-new families (``bench.py::run_gicp``/``run_ndt``, the
+   scan-to-map rows): (a) ``point_to_plane``, ``robust``, ``symmetric``
+   (phase 7's guesses), ``gicp`` and ``ndt`` p2d / d2d (cell 0.5, 1,024
+   slots; the bench's hard guesses, +-0.15 rad, +-0.6 m) on scans 1-3 at
+   B = 256 as in phase 7, NDT also with its lanes within 5 cm of the
+   trimmed pose; (b) ``converge_ndt_multiscale`` (8x -> 2x -> 1x cells) on
+   scan1; each family's init and iterate on scan1 (ms and kernels per
+   call) and a trace of the slowest iterate; (c) 3D gicp at queen scale:
+   precompute ms, ms per iterate over 50 chained iterates (best of 3),
+   kernels per iterate and a trace; (d) 3D NDT, a 4,096-point scan against
+   a 65,536-point sphere map: build ms, no overflow, dense and sorted
+   lookups equal, ms per iterate of each; (e) pose gates: 8 lanes of scan1
+   per 2D family and the torus pair for 3D point_to_plane and gicp, CUDA
+   float32 against CPU float64 (a lane over the gate is rerun on the CPU in
+   float32, from its guess and with the guess angle 1 ulp either side, and
+   passes only if one of those misses too: a float32 property).
+
 Phase 3 also runs K1 and K2 on the queen-scale pair itself,
 (1, 10720, 10720, 3) float32, timed beside its bound, the plain version and
 the library yardstick, and on phase 7's inputs (scans 1-3 at B = 256 under
 its guesses: (256, 1024, 1024, 2) and scan2's (256, 1096, 1096, 2), whose
-last query block is ragged), exact.  Each phase prints its seconds; the
-kernels line lists every case held exact.
+last query block is ragged) and scan1 under phase 8's hard guesses, exact.
+Each phase prints its seconds; the kernels line lists every case held exact
+and the launches of every path.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object of the kernels; the last line is
@@ -208,6 +226,11 @@ def _nn_cases(torch, np, dev):
         q = geometry.apply(guess, source.points).contiguous()
         cases.append((f"matrix scan{scan} {tuple(q.shape[:2]) + tuple(target.points.shape[1:])} "
                       "f32", None, q, target.points, target.mask))
+    # Phase 8's gicp input: scan1 under the hard guesses.
+    _, _, source, target = _matrix_pair(torch, icp, dev, 1)
+    q = geometry.apply(_hard_guess(torch, np, icp, dev)[2], source.points).contiguous()
+    cases.append(("hard guesses scan1 (256, 1024, 1024, 2) f32", None, q, target.points,
+                  target.mask))
     return cases
 
 
@@ -308,20 +331,23 @@ def _trace(torch, run) -> str:
     return "\n".join(lines)
 
 
-def _step_ms(torch, steps: dict) -> str:
-    """Milliseconds per call of each step, over 20 calls ending in a
-    synchronise (so each number is whichever of host dispatch or device
-    work bounds it)."""
-    out = []
-    for name, fn in steps.items():
+def _ms_per_call(torch, fn, calls: int = 20) -> float:
+    """Milliseconds per call over ``calls`` calls ending in a synchronise
+    (so the number is whichever of host dispatch or device work bounds it),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        out.append(f"{name} {(time.perf_counter() - t0) / 20 * 1e3:.3f}")
-    return "ms per call: " + ", ".join(out)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def _step_ms(torch, steps: dict) -> str:
+    """Milliseconds per call of each step (:func:`_ms_per_call`)."""
+    return "ms per call: " + ", ".join(
+        f"{name} {_ms_per_call(torch, fn):.3f}" for name, fn in steps.items())
 
 
 def _kernel_count(torch, fn) -> int:
@@ -564,6 +590,343 @@ def _phase_matrix(torch, np, icp, dev) -> dict:
     return launches
 
 
+# Phase 8: the net-new families.  (label, config, guesses): the matrix's
+# guesses for the point-to-point-like families, the bench's hard fleet for
+# gicp and NDT (``bench.py::run_gicp``/``run_ndt``).
+FAMILY_CELLS = (
+    ("point_to_plane", {}, "matrix"),
+    ("robust", {}, "matrix"),
+    ("symmetric", {}, "matrix"),
+    ("gicp", {}, "hard"),
+    ("ndt", {"cell_size": 0.5, "cells": 1024}, "hard"),
+    ("ndt d2d", {"cell_size": 0.5, "cells": 1024, "variant": "d2d"}, "hard"),
+)
+NDT_CONVERGED_M = 0.05  # a lane within 5 cm of the trimmed pose (bench.py:317-321)
+MAP_POINTS, MAP_SCAN_POINTS = 65536, 4096  # the scan-to-map cell (bench.py:499-512)
+
+
+def _bench_cfg(icp):
+    return icp.DriverConfig(
+        max_iterations=50, angle_tolerance=0.1 * math.pi / 180, translation_tolerance=0.01)
+
+
+def _hard_guess(torch, np, icp, dev):
+    """``bench.py::_hard_guesses``: seed 1, +-0.15 rad, +-0.6 m, B = 256."""
+    rng = np.random.default_rng(1)
+    angles = rng.uniform(-0.15, 0.15, MATRIX_BATCH).astype(np.float32)
+    shifts = rng.uniform(-0.6, 0.6, (MATRIX_BATCH, 2)).astype(np.float32)
+    guess = icp.from_angle_2d(torch.tensor(angles, device=dev), torch.tensor(shifts, device=dev))
+    return angles, shifts, guess
+
+
+def _trimmed_reference(torch, icp, dev, pts):
+    """The pose NDT's converged lanes are counted against: single-scale
+    trimmed from the identity on the unbatched pair (bench.py:309-316)."""
+    a, b = (icp.from_points(p, dtype=torch.float32, device=dev) for p in pts)
+    ref, _ = icp.converge(icp.from_method("trimmed", 2), a, b,
+                          icp.identity(2, dtype=torch.float32, device=dev), _bench_cfg(icp))
+    return ref.transform.translation
+
+
+def _family_method(icp, label, cfg_kw):
+    return icp.from_method(label.split()[0], 2, icp.Config(**cfg_kw))
+
+
+def _cell_line(batch, times, result):
+    med = float(sorted(times)[len(times) // 2])
+    return (f"{batch / med:.2f} pairs/s (median of {len(times)}: {med * 1e3:.2f} ms; runs ms "
+            f"{', '.join(f'{x * 1e3:.2f}' for x in times)}), mean iterations "
+            f"{float(result.iteration_count.float().mean()):.4f} (max "
+            f"{int(result.iteration_count.max())}), mean cost {float(result.cost.mean()):.6f}")
+
+
+def _family_matrix(torch, np, icp, dev) -> tuple[dict, dict]:
+    """Phase 8a: each new family x scans 1-3 at B = 256; returns each
+    cell's launches and, per family, scan1's poses of the gate lanes."""
+    guesses = {"matrix": _matrix_guess(torch, np, icp, dev),
+               "hard": _hard_guess(torch, np, icp, dev)}
+    lanes = torch.as_tensor(np.arange(0, MATRIX_BATCH, MATRIX_BATCH // MATRIX_POSE_LANES),
+                            device=dev)
+    launches, scan1 = {}, {}
+    for label, cfg_kw, fleet in FAMILY_CELLS:
+        fn = icp.make_converge_fn(_family_method(icp, label, cfg_kw), _bench_cfg(icp))
+        guess = guesses[fleet][2]
+        for scan in (1, 2, 3):
+            pts, cap, source, target = _matrix_pair(torch, icp, dev, scan)
+
+            def run():
+                out, _ = fn(source, target, guess)
+                float(out.cost.sum())  # waits for the device
+                return out
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            result, times, cell = _timed_runs(run, 3)
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches[f"{label}/scan{scan}"] = cell
+            if not label.startswith("ndt") and cell["K2"] <= 0:
+                raise AssertionError(f"{label} scan{scan} did not launch K2: {cell}")
+            rot, trans = result.transform.rotation, result.transform.translation
+            if not (torch.isfinite(rot).all() and torch.isfinite(trans).all()
+                    and torch.isfinite(result.cost).all()):
+                raise AssertionError(f"{label} scan{scan}: non-finite poses or costs")
+            line = (f"{label} scan{scan} B={MATRIX_BATCH} cap {cap} ({fleet} guesses): "
+                    f"{_cell_line(MATRIX_BATCH, times, result)}, launches {cell}, peak device "
+                    f"memory {peak / 2**30:.3f} GiB")
+            if label.startswith("ndt"):
+                ref = _trimmed_reference(torch, icp, dev, pts)
+                ok = int((torch.linalg.vector_norm(trans - ref, dim=-1) < NDT_CONVERGED_M).sum())
+                line += (f", converged lanes {ok}/{MATRIX_BATCH} (within {NDT_CONVERGED_M} m of "
+                         "trimmed)")
+            _say("families", line)
+            if scan == 1:
+                scan1[label] = (pts, cap, trans[lanes].double().cpu())
+            del source, target, result
+            torch.cuda.empty_cache()
+    return launches, scan1
+
+
+def _family_pose_gates(torch, np, icp, dev, scan1) -> None:
+    """Phase 8e (2D): 8 lanes of scan1 per family, CUDA float32 against CPU
+    float64.  A lane over the gate is run on the CPU in float32 as well,
+    from its guess and from the guess with the angle 1 ulp up and 1 ulp
+    down: if one of those misses the gate too, the lane's pose is not
+    determined to the gate in float32 (a float32 property of the method,
+    reported); if all three meet it, the script fails."""
+    lanes = np.arange(0, MATRIX_BATCH, MATRIX_BATCH // MATRIX_POSE_LANES)
+    guesses = {"matrix": _matrix_guess(torch, np, icp, "cpu"),
+               "hard": _hard_guess(torch, np, icp, "cpu")}
+    for label, cfg_kw, fleet in FAMILY_CELLS:
+        pts, cap, t_gpu = scan1[label]
+        angles, shifts, _ = guesses[fleet]
+        fn = icp.make_converge_fn(_family_method(icp, label, cfg_kw), _bench_cfg(icp))
+
+        def cpu_run(dtype, which, ulps=0):
+            src, tgt = (icp.stack([icp.from_points(p, capacity=cap, dtype=dtype, device="cpu")]
+                                  * len(which)) for p in pts)
+            angle = torch.tensor(angles[which], dtype=dtype)
+            if ulps:
+                angle = torch.nextafter(angle, torch.full_like(angle, ulps * math.inf))
+            guess = icp.from_angle_2d(angle, torch.tensor(shifts[which], dtype=dtype))
+            return fn(src, tgt, guess)[0].transform.translation.double()
+
+        t0 = time.perf_counter()
+        t64 = cpu_run(torch.float64, lanes)
+        dt = torch.linalg.vector_norm(t_gpu - t64, dim=-1)
+        line = (f"{label} scan1, {len(lanes)} lanes, CUDA f32 vs CPU f64: max |dt| "
+                f"{float(dt.max()):.3e} m (gate {POSE_AGREEMENT_TOL_M}), CPU run "
+                f"{time.perf_counter() - t0:.1f} s")
+        missed = dt > POSE_AGREEMENT_TOL_M
+        if missed.any():
+            which = lanes[missed.numpy()]
+            dt32 = torch.stack([torch.linalg.vector_norm(
+                cpu_run(torch.float32, which, u) - t64[missed], dim=-1) for u in (0, 1, -1)])
+            line += (f"; lanes over the gate {missed.nonzero().flatten().tolist()}, CUDA f32 |dt| "
+                     f"{[f'{x:.3e}' for x in dt[missed].tolist()]}, CPU f32 |dt| from the guess, "
+                     f"1 ulp up, 1 ulp down "
+                     f"{[[f'{x:.3e}' for x in row] for row in dt32.T.tolist()]}")
+            if (dt32.max(0).values <= POSE_AGREEMENT_TOL_M).any():
+                raise AssertionError(f"{label}: CUDA f32 misses the gate on a lane that CPU f32 "
+                                     f"meets from its guess and 1 ulp either side: {line}")
+            line += (": each misses on the CPU in float32 too, a float32 property of the method "
+                     "on these lanes")
+        _say("families-pose", line)
+
+
+def _iterate_profile(torch, np, icp, dev) -> None:
+    """Each new family's init and iterate on scan1 at B = 256: ms per call,
+    kernels per call; then a trace of 5 iterates of the slowest iterate."""
+    _, _, source, target = _matrix_pair(torch, icp, dev, 1)
+    guesses = {"matrix": _matrix_guess(torch, np, icp, dev)[2],
+               "hard": _hard_guess(torch, np, icp, dev)[2]}
+    per_iterate = {}
+    for label, cfg_kw, fleet in FAMILY_CELLS:
+        method = _family_method(icp, label, cfg_kw)
+        guess = guesses[fleet]
+        state = method.init(source, target, guess)
+        init_ms = _ms_per_call(torch, lambda: method.init(source, target, guess), 5)
+        iterate_ms = _ms_per_call(torch, lambda: method.iterate(state))
+        per_iterate[label] = (iterate_ms, method, state)
+        _say("families-steps", f"{label}: ms per call: init {init_ms:.3f}, iterate "
+                               f"{iterate_ms:.3f}; kernels per call (torch.profiler): init "
+                               f"{_kernel_count(torch, lambda: method.init(source, target, guess))}"
+                               f", iterate {_kernel_count(torch, lambda: method.iterate(state))}")
+    slowest = max(per_iterate, key=lambda k: per_iterate[k][0])
+    _, method, state = per_iterate[slowest]
+
+    def five():
+        s = state
+        for _ in range(5):
+            s = method.iterate(s)
+        float(method.cost(s).sum())
+
+    _say("families-trace", f"{slowest} (slowest iterate), 5 iterates: " + _trace(torch, five))
+
+
+def _chained_ms(torch, method, state0, n: int = 50, reps: int = 3) -> float:
+    """Best of ``reps`` mean ms per iterate over ``n`` chained iterates (the
+    queen protocol, ``bench.py:264-290``), after one warm-up chain."""
+    best = math.inf
+    for rep in range(reps + 1):
+        state = state0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state = method.iterate(state)
+        float(method.cost(state).sum())
+        if rep:
+            best = min(best, (time.perf_counter() - t0) / n * 1e3)
+    return best
+
+
+def _queen_gicp(torch, icp, dev) -> dict:
+    """Phase 8c: 3D gicp at queen scale; returns the launches of 50 chained
+    iterates."""
+    src_pts, dst_pts = (icp.read_ply(os.path.join(REPO, p)) for p in QUEEN)
+    source = icp.from_points(src_pts, dtype=torch.float32, device=dev)
+    target = icp.from_points(dst_pts, dtype=torch.float32, device=dev)
+    method = icp.from_method("gicp", 3, icp.Config(dim=3, neighbors=10, normal_neighbors=10))
+    pre = []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cov = method.precompute(target)
+        float(cov.sum())
+        if rep:
+            pre.append((time.perf_counter() - t0) * 1e3)
+    state0 = method.init(source, target, icp.identity(3, dtype=torch.float32, device=dev))
+    ms = _chained_ms(torch, method, state0)
+    _reset_launches()
+    state = state0
+    for _ in range(50):
+        state = method.iterate(state)
+    float(method.cost(state).sum())
+    launches = _read_launches()
+    if launches["K2"] != 50:
+        raise AssertionError(f"queen gicp: 50 iterates launched {launches}")
+    if not torch.isfinite(state.transform.translation).all():
+        raise AssertionError("queen gicp: non-finite pose")
+    kernels = _kernel_count(torch, lambda: method.iterate(state0))
+
+    def five():
+        s = state0
+        for _ in range(5):
+            s = method.iterate(s)
+        float(method.cost(s).sum())
+
+    before = _mean_nn(torch, state0.transform, source, target)
+    after = _mean_nn(torch, state.transform, source, target)
+    _say("gicp3d", f"queen-scale gicp 3D (10,720 points, neighbors 10) f32: precompute (surfel "
+                   f"covariances of one cloud) ms {', '.join(f'{x:.2f}' for x in pre)}; "
+                   f"{ms:.3f} ms per GN iterate (best of 3 chains of 50); kernels per iterate "
+                   f"{kernels}; 50 iterates launched {launches}; mean NN distance {before:.6e} "
+                   f"-> {after:.6e} after 50")
+    _say("gicp3d-trace", "5 chained iterates: " + _trace(torch, five))
+    return launches
+
+
+def _scan_to_map(torch, np, icp, dev) -> None:
+    """Phase 8d: 3D NDT, a 4,096-point scan against a 65,536-point sphere
+    map (bench.py:499-512, seed 13), cell 1.0, 8,192 slots."""
+    from icp_tpu_torch.ops import ndt
+
+    rng = np.random.default_rng(13)
+    u = rng.normal(size=(MAP_POINTS, 3)).astype(np.float32)
+    map_pts = 20.0 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    v = rng.normal(size=(MAP_SCAN_POINTS, 3)).astype(np.float32)
+    v[:, 2] = np.abs(v[:, 2])  # upper-cap scan
+    scan_pts = 20.0 * v / np.linalg.norm(v, axis=1, keepdims=True)
+    scan_pts += rng.normal(0, 0.02, scan_pts.shape).astype(np.float32)
+    source = icp.from_points(scan_pts, dtype=torch.float32, device=dev)
+    target = icp.from_points(map_pts, dtype=torch.float32, device=dev)
+    cfg = {"dim": 3, "cell_size": 1.0, "cells": 8192}
+    dense = icp.from_method("ndt", 3, icp.Config(**cfg))
+    build = []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = dense.precompute(target)
+        overflowed = bool(maps.overflowed.any())
+        if rep:
+            build.append((time.perf_counter() - t0) * 1e3)
+    if overflowed:
+        raise AssertionError(f"scan-to-map: the {MAP_POINTS}-point map overflowed 8,192 slots")
+    q = source.points[None].expand(maps.keys.shape[0], *source.points.shape)
+    d, s = ndt.lookup_cells_dense(q, maps), ndt.lookup_cells(q, maps)
+    hit = s[2]
+    if not (torch.equal(d[2], hit) and all(torch.equal(d[i][hit], s[i][hit]) for i in (0, 1, 3))):
+        raise AssertionError("scan-to-map: dense and sorted lookups differ")
+    ident = icp.identity(3, dtype=torch.float32, device=dev)
+    per = {}
+    for lookup in ("dense", "sorted"):
+        method = icp.from_method("ndt", 3, icp.Config(lookup=lookup, **cfg))
+        state0 = method.with_precomputed(None, maps).init(source, target, ident)
+        per[lookup] = _chained_ms(torch, method, state0)
+    _say("scan-to-map", f"{MAP_POINTS}-point map, 8 grids, {int(maps.valid.sum())} valid cells: "
+                        f"build ms {', '.join(f'{x:.2f}' for x in build)}, no overflow; lookups "
+                        f"of the {MAP_SCAN_POINTS}-point scan: {int(hit.sum())} hits, dense == "
+                        f"sorted; ms per "
+                        f"iterate (best of 3 chains of 50): dense {per['dense']:.3f}, sorted "
+                        f"{per['sorted']:.3f}")
+
+
+def _pose_gates_3d(torch, icp, dev) -> None:
+    """Phase 8e (3D): point_to_plane and gicp on the 1,800-point torus pair,
+    CUDA float32 against CPU float64."""
+    a, b = (icp.read_ply(os.path.join(REPO, f"ex_data/ply/{f}"))
+            for f in ("torus_transformed.ply", "torus.ply"))
+    cfg = icp.DriverConfig(max_iterations=100, angle_tolerance=1e-4, translation_tolerance=1e-4)
+    for name, kw in (("point_to_plane", {}), ("gicp", {"neighbors": 10})):
+        method = icp.from_method(name, 3, icp.Config(**kw))
+        out = {}
+        for d, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+            out[str(d)], _ = icp.converge(
+                method, icp.from_points(a, dtype=dtype, device=d),
+                icp.from_points(b, dtype=dtype, device=d), icp.identity(3, dtype=dtype, device=d),
+                cfg)
+        gpu, cpu = out[str(dev)], out["cpu"]
+        dt = float(torch.linalg.vector_norm(gpu.transform.translation.double().cpu()
+                                            - cpu.transform.translation))
+        _say("families-pose", f"{name} 3D torus pair: CUDA f32 vs CPU f64 |dt| {dt:.3e} m (gate "
+                              f"{POSE_AGREEMENT_TOL_M}), iterations "
+                              f"{int(gpu.iteration_count)} vs {int(cpu.iteration_count)}")
+        if not dt <= POSE_AGREEMENT_TOL_M:
+            raise AssertionError(f"{name} 3D pose agreement failed: {dt}")
+
+
+def _phase_families(torch, np, icp, dev) -> dict:
+    """Phase 8: the net-new families; returns the launches of each path."""
+    from icp_tpu_torch.multiscale import converge_ndt_multiscale
+
+    launches, scan1 = _family_matrix(torch, np, icp, dev)
+    paths = {f"families {k}": v for k, v in launches.items()}
+    _, _, guess = _hard_guess(torch, np, icp, dev)
+    pts, _, source, target = _matrix_pair(torch, icp, dev, 1)
+
+    def run():
+        out, _ = converge_ndt_multiscale(
+            source, target, guess, _bench_cfg(icp), dim=2,
+            ndt_config=icp.Config(cell_size=0.5, cells=1024), scales=(8.0, 2.0),
+            coarse_max_iterations=6)
+        float(out.cost.sum())
+        return out
+
+    result, times, paths["ndt multiscale/scan1"] = _timed_runs(run, 3)
+    ref = _trimmed_reference(torch, icp, dev, pts)
+    ok = int((torch.linalg.vector_norm(result.transform.translation - ref, dim=-1)
+              < NDT_CONVERGED_M).sum())
+    _say("ndt-multiscale", f"scan1 8x -> 2x -> 1x cells (coarse cap 6, no coarse init), hard "
+                           f"guesses, B={MATRIX_BATCH}: {_cell_line(MATRIX_BATCH, times, result)} "
+                           f"(fine level), converged lanes {ok}/{MATRIX_BATCH}")
+    del source, target
+    _iterate_profile(torch, np, icp, dev)
+    paths["gicp 3d queen, 50 iterates"] = _queen_gicp(torch, icp, dev)
+    _scan_to_map(torch, np, icp, dev)
+    torch.cuda.empty_cache()
+    _family_pose_gates(torch, np, icp, dev, scan1)
+    _pose_gates_3d(torch, icp, dev)
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -724,6 +1087,8 @@ def main() -> int:
     for name, cell in _phase_matrix(torch, np, icp, dev).items():
         paths[f"matrix {name}"] = cell
     phase_done("7 matrix")
+    paths.update(_phase_families(torch, np, icp, dev))
+    phase_done("8 families")
     _say("seconds", ", ".join(f"phase {k} {v}" for k, v in phase_s.items()))
 
     def entry(k, name, replaces):

@@ -1,9 +1,12 @@
 """icp_tpu_torch — the PyTorch / CUDA port of :mod:`icp_tpu`.
 
 Batched ICP on tensors: the five reference methods (2D ``vanilla``,
-``trimmed``, ``feature_aware``; 3D ``vanilla``, ``trimmed``), the
-convergence drivers, multiscale registration, the scan/sweep/PLY readers and
-a ``register`` CLI (``python -m icp_tpu_torch.cli``).  The exact masked 1-NN
+``trimmed``, ``feature_aware``; 3D ``vanilla``, ``trimmed``) and the
+net-new families ``point_to_plane``, ``robust``, ``symmetric``, ``gicp`` and
+``ndt`` in 2D and 3D, the SE(2)/SE(3) maps (``lie``), the convergence
+drivers, multiscale registration (point decimation, and NDT's cell-size
+schedule), the scan/sweep/PLY readers and a ``register`` CLI
+(``python -m icp_tpu_torch.cli``).  The exact masked 1-NN
 correspondence is a CUDA kernel for Hopper (``csrc/nn.cu``, built with
 ``nvcc`` at first use).  The JAX package is the reference each module is
 tested against.  The entry points put their tensors on the card unless the
@@ -30,7 +33,7 @@ Quick start (on the card, in float32)::
 
 import torch
 
-from . import cloud, convert, driver, geometry, io, methods, multiscale, ops
+from . import cloud, convert, driver, geometry, io, lie, methods, multiscale, ops
 from .cloud import PointCloud, bucket_capacity, from_points, pad_to, stack, to_numpy
 from .config import Config
 from .driver import ConvergenceState, DriverConfig, converge, converge_stepped, make_converge_fn
@@ -78,6 +81,7 @@ __all__ = [
     "inverse",
     "io",
     "is_method_registered",
+    "lie",
     "make_converge_fn",
     "methods",
     "multiscale",

@@ -8,6 +8,10 @@ as the tests that compare with the JAX package do:
 * ``PointCloud.points`` / ``.count``
 * ``RigidTransform.rotation`` / ``.translation``
 * ``DriverConfig`` fields, as a mapping (``dataclasses.asdict`` of either)
+* methods' precomputed state (``Method.precompute``): per-point normals
+  ``(..., N, D)``, surfel covariances ``(..., N, D, D)``, and an ``NdtMap``'s
+  fields (``jax_map._asdict()`` of the JAX package's map), so that
+  ``with_precomputed`` can be fed from one source on both sides
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from .cloud import PointCloud
 from .driver import DriverConfig
 from .geometry import RigidTransform, default_dtype
+from .ops.ndt import NdtMap
 
 
 def _tensor(array, dtype, device) -> torch.Tensor:
@@ -60,3 +65,33 @@ def driver_config_from_fields(fields: Mapping[str, Any]) -> DriverConfig:
 def driver_config_to_fields(config: DriverConfig) -> dict[str, Any]:
     """The fields of a :class:`DriverConfig` as a dict."""
     return dataclasses.asdict(config)
+
+
+def normals_from_numpy(normals, *, dtype=None, device="cuda") -> torch.Tensor:
+    """Per-point normals ``(..., N, D)`` (point_to_plane, symmetric)."""
+    out = _tensor(normals, dtype, device)
+    if out.dim() < 2 or out.shape[-1] not in (2, 3):
+        raise ValueError(f"normals must be (..., N, D) with D in (2, 3), got {tuple(out.shape)}")
+    return out.contiguous()
+
+
+def covariances_from_numpy(covariances, *, dtype=None, device="cuda") -> torch.Tensor:
+    """Per-point surfel covariances ``(..., N, D, D)`` (gicp)."""
+    out = _tensor(covariances, dtype, device)
+    if out.dim() < 3 or out.shape[-1] not in (2, 3) or out.shape[-2] != out.shape[-1]:
+        raise ValueError(f"covariances must be (..., N, D, D), got {tuple(out.shape)}")
+    return out.contiguous()
+
+
+def ndt_map_from_numpy(fields: Mapping[str, Any], *, dtype=None, device="cuda") -> NdtMap:
+    """An :class:`~icp_tpu_torch.ops.ndt.NdtMap` from a mapping of its field
+    names to arrays: keys as int32, valid and overflowed as bool, the rest
+    in ``dtype``.  Missing or unknown names raise ``KeyError``."""
+    if set(fields) != set(NdtMap._fields):
+        raise KeyError(f"NdtMap fields {sorted(NdtMap._fields)}, got {sorted(fields)}")
+    exact = {"keys": torch.int32, "valid": torch.bool, "overflowed": torch.bool}
+    return NdtMap(**{
+        name: (torch.tensor(np.asarray(fields[name]), dtype=exact[name], device=device)
+               if name in exact else _tensor(fields[name], dtype, device)).contiguous()
+        for name in NdtMap._fields
+    })

@@ -22,6 +22,7 @@ import torch
 from ..cloud import PointCloud
 from ..config import Config
 from ..geometry import RigidTransform
+from ..ops.pallas_nn import nearest_neighbors_pallas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,8 +35,9 @@ class Method:
     ``with_precomputed(aux_source, aux_target)`` returns a Method whose
     ``init`` consumes it, so a sequential pipeline computes it once per scan.
     ``precompute_source`` is False for methods that derive data from the
-    target only; they accept ``with_precomputed(None, aux_target)``.  None of
-    the five reference methods uses them.
+    target only; they accept ``with_precomputed(None, aux_target)``.  The
+    five reference methods use none of them; point_to_plane, symmetric,
+    gicp and ndt do.
     """
 
     name: str
@@ -77,6 +79,33 @@ def lane_targets(target: PointCloud, lead: torch.Size) -> tuple[torch.Tensor, to
     points = target.points.expand(*lead, *target.points.shape[-2:]).contiguous()
     mask = target.mask.expand(*lead, target.capacity).contiguous()
     return points, mask
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``values[..., idx, ...]`` per lane: rows ``(..., M, *tail)`` picked by
+    ``idx (..., N)`` into ``(..., N, *tail)`` (``take_along_axis`` on the
+    row axis); the tail's length is read from ``values``' rank against
+    ``idx``'s."""
+    lead = idx.shape[:-1]
+    tail = values.shape[len(lead) + 1:]
+    rows = values.reshape(*values.shape[: len(lead) + 1], -1)
+    got = torch.take_along_dim(rows, idx.long()[..., None], dim=-2)
+    return got.reshape(*got.shape[:-1], *tail)
+
+
+def match(a_cur: torch.Tensor, target: PointCloud) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sq, idx)`` of each moved source point's nearest valid target, from
+    the 1-NN kernel's K2 wrapper (its plain version on the CPU)."""
+    points, mask = lane_targets(target, a_cur.shape[:-2])
+    return nearest_neighbors_pallas(a_cur, points, mask)
+
+
+def masked_rms(match_cost: torch.Tensor, source: PointCloud) -> torch.Tensor:
+    """``sqrt(mean)`` of the per-point costs over the valid source points:
+    the driver cost of trimmed and of the net-new families."""
+    finite = match_cost.masked_fill(~source.mask, 0.0)
+    n = torch.clamp(source.count.to(finite.dtype), min=1.0)
+    return torch.sqrt(finite.sum(-1) / n)
 
 
 MethodFactory = Callable[[Config], Method]

@@ -30,7 +30,7 @@ from ..ops.fused_nn import fused_nearest_neighbors
 from ..ops.pallas_nn import nearest_neighbors_pallas
 from ..ops.rigid_fit import fit_rigid
 from ..ops.select import select_smallest_weights
-from .base import Method, lane_targets
+from .base import Method, lane_targets, masked_rms
 
 DEFAULT_OVERLAP_RATE = 0.9  # ``trimmed.cpp:28``
 
@@ -123,8 +123,6 @@ def create(config: Config) -> Method:
         )
 
     def cost(state: TrimmedState) -> torch.Tensor:
-        finite = state.match_cost.masked_fill(~state.source.mask, 0.0)
-        n = torch.clamp(state.source.count.to(finite.dtype), min=1.0)
-        return torch.sqrt(finite.sum(-1) / n)
+        return masked_rms(state.match_cost, state.source)
 
     return Method(name="trimmed", dim=2, init=init, iterate=iterate, cost=cost)

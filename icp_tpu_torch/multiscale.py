@@ -6,6 +6,7 @@ coarse result under the caller's exact driver config.  An iteration on N/f
 points costs about 1/f² of a full one for the N×M correspondence.
 Multiscale is an accelerator, not a robustness feature: on sparse or highly
 structured geometry the decimated problem can have another nearest minimum.
+:func:`converge_ndt_multiscale` is NDT's own schedule, over cell sizes.
 """
 
 from __future__ import annotations
@@ -70,3 +71,50 @@ def _capped(config: DriverConfig, coarse_max_iterations: int | None) -> DriverCo
     return dataclasses.replace(
         config, max_iterations=coarse_max_iterations, min_iterations=coarse_min
     )
+
+
+def converge_ndt_multiscale(
+    source: PointCloud,
+    target: PointCloud,
+    guess: RigidTransform,
+    config: DriverConfig,
+    dim: int = 2,
+    ndt_config=None,
+    scales: tuple[float, ...] = (4.0,),
+    coarse_max_iterations: int | None = 10,
+    decimate_factor: int | None = None,
+    coarse_init: bool = False,
+) -> tuple[ConvergenceState, object]:
+    """Coarse-to-fine NDT: a cell-size schedule (Magnusson 2009 §6.5).
+
+    Registration runs first at ``scale x cell_size`` for each entry of
+    ``scales`` above 1 (largest first, at most ``coarse_max_iterations``
+    iterations), on clouds stride-decimated by ``decimate_factor`` (default
+    ``round(scale)``), each level seeding the next; then at the caller's NDT
+    config (``ndt_config``, every key honoured at every level, only
+    ``cell_size`` scaled) and driver config.  Returns the fine level's
+    ``(ConvergenceState, method state)``.
+
+    ``coarse_init=True`` (the JAX package's global coarse initializer,
+    ``ops/coarse``) is not ported yet and raises ``NotImplementedError``.
+    """
+    from .config import Config
+    from .methods import from_method
+
+    if coarse_init:
+        raise NotImplementedError(
+            "converge_ndt_multiscale(coarse_init=True) needs ops/coarse, which is not "
+            "ported yet (ROADMAP queue 1, item 8)"
+        )
+    cfg = ndt_config if ndt_config is not None else Config()
+    cell_size = float(cfg.get("cell_size", 1.0))
+    current = guess
+    for s in sorted((float(x) for x in scales), reverse=True):
+        if s <= 1.0:
+            continue
+        coarse_method = from_method("ndt", dim, cfg.set("cell_size", cell_size * s).set("dim", dim))
+        f = max(int(round(s)) if decimate_factor is None else decimate_factor, 1)
+        result, _ = converge(coarse_method, decimate(source, f), decimate(target, f), current,
+                             _capped(config, coarse_max_iterations))
+        current = result.transform
+    return converge(from_method("ndt", dim, cfg.set("dim", dim)), source, target, current, config)

@@ -20,6 +20,12 @@ CASES = {
     "torus trimmed 3D": ["--ply", "-S", f"{DATA}/ply/torus_transformed.ply",
                          "-D", f"{DATA}/ply/torus.ply", "-m", "trimmed"],
 }
+# The -c keys of the net-new families, and the typed Config they must parse to.
+FAMILY_KEYS = {
+    "ndt": (["cell_size=0.5", "cells=1024", "variant=d2d", "lookup=sorted"],
+            dict(cell_size=0.5, cells=1024, variant="d2d", lookup="sorted")),
+    "gicp": (["neighbors=10", "line_search=0"], dict(neighbors=10, line_search=0)),
+}
 
 
 def _run(main, capsys, args, platform="cpu"):
@@ -35,6 +41,31 @@ def test_register_matches_jax_cli(capsys, case):
     np.testing.assert_allclose(got["rotation"], want["rotation"], atol=1e-5)
     np.testing.assert_allclose(got["translation"], want["translation"], atol=1e-5)
     np.testing.assert_allclose(got["cost"], want["cost"], atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_KEYS))
+def test_register_new_family_keys(capsys, name):
+    """``-c`` parses gicp's and NDT's keys to their types: the CLI's pose is
+    the library's under the typed Config (float32 on the CPU, as the CLI
+    loads)."""
+    import torch
+
+    import icp_tpu_torch as T
+
+    keys, typed = FAMILY_KEYS[name]
+    got = _run(cli.main, capsys, [*CASES["scan1 trimmed"][:4], "-m", name, "-c", *keys,
+                                  "--exact-capacity", "--max-iterations", "50",
+                                  "--translation-tolerance", "0.01"])
+    assert got["method"] == name
+    a, b = (T.io.parse_lidar_scan_array(CASES["scan1 trimmed"][i]) for i in (1, 3))
+    want, _ = T.converge(
+        T.from_method(name, 2, T.Config(**typed)),
+        *(T.from_points(p, dtype=torch.float32, device="cpu") for p in (a, b)),
+        T.identity(2, dtype=torch.float32, device="cpu"),
+        T.DriverConfig(max_iterations=50, angle_tolerance=float(np.deg2rad(0.1)),
+                       translation_tolerance=0.01))
+    assert got["iterations"] == int(want.iteration_count)
+    np.testing.assert_allclose(got["translation"], want.transform.translation.numpy(), atol=1e-6)
 
 
 def test_register_out_ply_and_text(capsys, tmp_path):
@@ -60,7 +91,8 @@ def test_register_unknown_method_lists_registry(capsys):
 def test_methods_lists_both_dims(capsys):
     cli.main(["methods"])
     assert capsys.readouterr().out.splitlines() == [
-        "2D: feature_aware, trimmed, vanilla", "3D: trimmed, vanilla"]
+        "2D: feature_aware, gicp, ndt, point_to_plane, robust, symmetric, trimmed, vanilla",
+        "3D: gicp, ndt, point_to_plane, robust, symmetric, trimmed, vanilla"]
 
 
 def test_gpu_platform_needs_a_card(capsys, monkeypatch):

@@ -157,14 +157,16 @@ def test_driver_config_validation():
 
 
 def test_registry():
-    """The five reference methods (``icp.cpp:16-27``), as the JAX package
-    registers them."""
-    assert T.registered_methods(2) == ["feature_aware", "trimmed", "vanilla"]
-    assert T.registered_methods(3) == ["trimmed", "vanilla"]
+    """The five reference methods (``icp.cpp:16-27``) and the net-new
+    families, as the JAX package registers them."""
+    assert T.registered_methods(2) == ["feature_aware", "gicp", "ndt", "point_to_plane", "robust",
+                                       "symmetric", "trimmed", "vanilla"]
+    assert T.registered_methods(3) == ["gicp", "ndt", "point_to_plane", "robust", "symmetric",
+                                       "trimmed", "vanilla"]
     for dim in (2, 3):
-        assert set(T.registered_methods(dim)) <= set(J.registered_methods(dim))
+        assert T.registered_methods(dim) == J.registered_methods(dim)
     assert T.is_method_registered("trimmed", 2) and not T.is_method_registered("feature_aware", 3)
-    with pytest.raises(KeyError, match="registered: \\['trimmed', 'vanilla'\\]"):
+    with pytest.raises(KeyError, match="registered: \\['gicp', 'ndt', "):
         T.from_method("feature_aware", 3)
     method = T.from_method("trimmed", 2, T.Config(overlap_rate=0.5))
     assert method.name == "trimmed" and method.dim == 2
