@@ -63,11 +63,35 @@
    float32, from its guess and with the guess angle 1 ulp either side, and
    passes only if one of those misses too: a float32 property).
 
+9. The front end (float32 on the card; each path against CPU runs of the
+   port computed by worker processes while the card runs phases 3-9):
+   (a) all 120 seq1 sweeps chained, 119 pairs in one batch, trimmed to
+   1e-6 (plain, ``coarse=``, ``multiscale=``): pairs/s (median of 3), the
+   per-step error against the ground truth, ATE and RPE through ``eval``;
+   every pose within 2e-3 m of CPU float64; (b) ``stream_odometry`` and
+   ``stream_odometry_pipelined`` over 32 sweeps: ms/scan (median of 3
+   interleaved), keyframe flags equal to CPU float64, poses gated; (c)
+   scan-to-map over seq1, robust with the host and the device map (120
+   sweeps) and trimmed (32): ms/scan, map points, launches by target count
+   (M = 8,192), error against the ground truth, poses gated over the first
+   10 sweeps (a miss counts as float32's only if the CPU float32 run misses
+   too); then the 65,536-point map merge on the card against the host
+   ``LocalMap``, equal as sets; (d) the server (``bench.py::run_serving``):
+   low-load p50, bursts of 512 x 3 (p50, p99, pairs/s), every served pose
+   equal to a direct batched converge to 1e-5 m; (e) the 72 seq3d sweeps,
+   gicp 3D chain with the precompute cache, and ``coarse_align_3d`` on the
+   71 pairs (one K2 launch); poses gated over the first 24 sweeps; (f)
+   ``coarse_align_2d`` + trimmed on 1,024 scan1 lanes turned in +-pi:
+   converged lanes on the card and (every 4th lane) on the CPU, each card
+   guess within one histogram bin of the CPU float64 guess.
+
 Phase 3 also runs K1 and K2 on the queen-scale pair itself,
 (1, 10720, 10720, 3) float32, timed beside its bound, the plain version and
 the library yardstick, and on phase 7's inputs (scans 1-3 at B = 256 under
 its guesses: (256, 1024, 1024, 2) and scan2's (256, 1096, 1096, 2), whose
-last query block is ragged) and scan1 under phase 8's hard guesses, exact.
+last query block is ragged), scan1 under phase 8's hard guesses, and phase
+9's shapes (the seq1 chain's 119 pairs, a 1,024-point scan against an
+8,192-point map, the 71 seq3d pairs at 2,048 in 3D), exact.
 Each phase prints its seconds; the kernels line lists every case held exact
 and the launches of every path.
 
@@ -78,6 +102,9 @@ object of the kernels; the last line is
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import json
 import math
 import os
@@ -231,6 +258,18 @@ def _nn_cases(torch, np, dev):
     q = geometry.apply(_hard_guess(torch, np, icp, dev)[2], source.points).contiguous()
     cases.append(("hard guesses scan1 (256, 1024, 1024, 2) f32", None, q, target.points,
                   target.mask))
+    # Phase 9's shapes: the seq1 chain's pairs, a scan against a full map,
+    # and the seq3d pairs (coarse_align_3d stacks four times as many lanes).
+    seq1 = _stack(icp, _seq1(np)[0], "bucket", f32, dev)
+    cases.append((f"seq1 chain pairs ({len(seq1.count) - 1}, {seq1.capacity}, {seq1.capacity}, "
+                  "2) f32", None,
+                   seq1.points[:-1], seq1.points[1:].contiguous(), seq1.mask[1:].contiguous()))
+    cases.append((f"scan-to-map (1, {CAPACITY}, {MAP_CAPACITY}, 2) f32", None,
+                  *cloud_lanes(1, CAPACITY, MAP_CAPACITY, 2, f32, 3000)))
+    seq3d = _stack(icp, _seq3d(np)[0], "bucket", f32, dev)
+    cases.append((f"seq3d pairs ({len(seq3d.count) - 1}, {seq3d.capacity}, {seq3d.capacity}, "
+                  "3) f32", None, seq3d.points[:-1], seq3d.points[1:].contiguous(),
+                  seq3d.mask[1:].contiguous()))
     return cases
 
 
@@ -927,13 +966,605 @@ def _phase_families(torch, np, icp, dev) -> dict:
     return paths
 
 
-def main() -> int:
+
+
+# Phase 9: the odometry front end and the server, after
+# tests/test_seq1_odometry.py:57-73 (the chains), bench.py::run_streaming
+# (:1168-1245), run_mapping (:1480-1530), run_serving (:1062-1165) and
+# tests/test_seq3d_odometry.py (the seq3d gicp chain).
+SEQ1 = "ex_data/seq1"
+SEQ3D = "ex_data/seq3d"
+CHAIN_CFG = dict(max_iterations=150, angle_tolerance=1e-6, translation_tolerance=1e-6)
+CHAIN_MODES = ("plain", "coarse", "multiscale")
+SEQ3D_CFG = dict(max_iterations=60, angle_tolerance=1e-5, translation_tolerance=1e-5)
+# The CPU float64 gicp chain covers the first SEQ3D_GATED sweeps: pair t
+# reads only scans t and t + 1, so those poses are the same computation.
+SEQ3D_GATED = 24
+GICP_3D = dict(dim=3, neighbors=10, normal_neighbors=10)
+STREAM_SCANS, STREAM_TRANSLATION, STREAM_ANGLE = 32, 0.5, 0.1
+STREAMS = ("stream_odometry", "stream_odometry_pipelined")
+MAP_CAPACITY, VOXEL = 8192, 0.1
+# (label, method, sweeps, device_map), under CHAIN_CFG (at the bench's 1 cm
+# tolerance robust loses seq1 within ten sweeps): robust is the method the
+# mapping module recommends; trimmed puts K1 on the map-sized (staged)
+# target.  The CPU runs cover the first S2M_GATED sweeps (scan-to-map is
+# causal, so those poses are the same computation); float32's voxel
+# assignment moves poses by mm over a few dozen sweeps, so a miss there
+# counts as float32's only if the CPU float32 run misses too.
+S2M_RUNS = (("robust host map", "robust", 120, False),
+            ("robust device map", "robust", 120, True),
+            ("trimmed host map", "trimmed", 32, False))
+S2M_GATED = 10
+MERGE_MAP, MERGE_SCAN, MERGE_VOXEL = 65536, 4096, 0.2
+SERVE_BURST, SERVE_BATCH, SERVE_DELAY, SERVE_TOL_M = 512, 64, 0.005, 1e-5
+COARSE_LANES, COARSE_CPU_STRIDE = 1024, 4
+HIST_BIN = 2 * math.pi / 180  # coarse_align_2d's 180 bins
+# The CPU runs phase 9 is held against, longest first; REFERENCE_WORKERS
+# processes compute them while the card runs phases 3-9.
+REFERENCE_TASKS = ("chains", "seq3d", "coarse2d", "scan_to_map", "scan_to_map_f32", "streams")
+REFERENCE_WORKERS = 3
+
+
+def _seq1(np):
+    """The 120 seq1 sweeps as (n, 2) arrays, and the ground-truth poses
+    (x, y, theta)."""
+    import glob
+
+    from icp_tpu_torch.io import parse_sweep_conf, sweep_to_points
+
+    paths = sorted(glob.glob(os.path.join(REPO, SEQ1, "sweep_*.conf")))
+    with open(os.path.join(REPO, SEQ1, "groundtruth.json")) as f:
+        gt = np.asarray(json.load(f)["poses"])
+    return [sweep_to_points(parse_sweep_conf(p)) for p in paths], gt
+
+
+def _seq3d(np):
+    """The 72 seq3d sweeps as (n, 3) arrays, and the ground-truth world poses
+    (rotations, translations)."""
+    import glob
+
+    from icp_tpu_torch.io import read_ply
+
+    paths = sorted(glob.glob(os.path.join(REPO, SEQ3D, "sweep_*.ply")))
+    with open(os.path.join(REPO, SEQ3D, "groundtruth.json")) as f:
+        gt = json.load(f)
+    return ([read_ply(p) for p in paths], np.asarray(gt["rotations"]),
+            np.asarray(gt["translations"]))
+
+
+def _stack(icp, arrays, capacity, dtype, dev):
+    return icp.stack([icp.from_points(a, capacity=capacity, dtype=dtype, device=dev)
+                      for a in arrays])
+
+
+def _coarse_inputs(np):
+    """Phase 9f's lanes: scan1's first cloud turned about the origin by
+    seeded angles in +-pi (seed 5); the second cloud is every target."""
+    from icp_tpu_torch.io import parse_lidar_scan_array
+
+    a, b = (parse_lidar_scan_array(os.path.join(REPO, f"ex_data/scan1/{f}.csv"))
+            for f in ("first", "second"))
+    angles = np.random.default_rng(5).uniform(-math.pi, math.pi, COARSE_LANES)
+    c, s = np.cos(angles), np.sin(angles)
+    rots = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+    return np.einsum("lij,nj->lni", rots, a), a, b
+
+
+def _phase9_reference(task: str) -> dict:
+    """One group of phase 9's CPU float64 runs of the port (a worker
+    process's job); returns numpy arrays.  Clouds keep their own capacity
+    (the largest sweep rounded up to 8): results do not depend on padding."""
     import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(2)
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import mapping, odometry
+    from icp_tpu_torch.ops.coarse import coarse_align_2d
+
+    cpu = "cpu"
+    t0 = time.perf_counter()
+    out = {}
+    if task == "chains":
+        scans = _stack(icp, _seq1(np)[0], None, None, cpu)
+        for mode in CHAIN_MODES:
+            traj = odometry.chain_scans(scans, icp.from_method("trimmed", 2),
+                                        icp.DriverConfig(**CHAIN_CFG), **_chain_kw(mode))
+            out[mode] = traj.poses.translation.numpy()
+    elif task == "streams":
+        clouds = [icp.from_points(a, device=cpu) for a in _seq1(np)[0][:STREAM_SCANS]]
+        method = icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9))
+        for variant in STREAMS:
+            res = list(getattr(odometry, variant)(clouds, method, _bench_cfg(icp),
+                                                  STREAM_TRANSLATION, STREAM_ANGLE))
+            out[variant] = (np.stack([p.translation.numpy() for p, _, _ in res]),
+                            [bool(f) for _, f, _ in res])
+    elif task in ("scan_to_map", "scan_to_map_f32"):
+        sweeps, _ = _seq1(np)
+        dtype = torch.float32 if task.endswith("f32") else torch.float64
+        for label, name, _, device_map in S2M_RUNS:
+            res = list(mapping.scan_to_map_odometry(
+                [icp.from_points(a, dtype=dtype, device=cpu) for a in sweeps[:S2M_GATED]],
+                icp.from_method(name, 2), icp.DriverConfig(**CHAIN_CFG), voxel_size=VOXEL,
+                map_capacity=MAP_CAPACITY, device_map=device_map))
+            out[label] = (np.stack([p.translation.double().numpy() for p, _, _ in res]),
+                          [bool(f) for _, f, _ in res])
+    elif task == "seq3d":
+        traj = odometry.chain_scans(_stack(icp, _seq3d(np)[0][:SEQ3D_GATED], None, None, cpu),
+                                    icp.from_method("gicp", 3, icp.Config(**GICP_3D)),
+                                    icp.DriverConfig(**SEQ3D_CFG))
+        out["poses"] = traj.poses.translation.numpy()
+    elif task == "coarse2d":
+        src_pts, a, b = _coarse_inputs(np)
+        src = _stack(icp, list(src_pts), None, None, cpu)
+        tgt = icp.stack([icp.from_points(b, capacity=src.capacity, device=cpu)] * COARSE_LANES)
+        guess = coarse_align_2d(src, tgt)
+        out["angles"] = torch.atan2(guess.rotation[:, 1, 0], guess.rotation[:, 0, 0]).numpy()
+        sub = slice(None, None, COARSE_CPU_STRIDE)
+        method, cfg = icp.from_method("trimmed", 2), _bench_cfg(icp)
+        res, _ = icp.converge(method, icp.PointCloud(src.points[sub], src.count[sub]),
+                              icp.PointCloud(tgt.points[sub], tgt.count[sub]),
+                              icp.RigidTransform(guess.rotation[sub], guess.translation[sub]), cfg)
+        out["translations"] = res.transform.translation.numpy()
+        ref, _ = icp.converge(method, icp.from_points(a, device=cpu),
+                              icp.from_points(b, device=cpu), icp.identity(2, device=cpu), cfg)
+        out["reference"] = ref.transform.translation.numpy()
+    else:
+        raise ValueError(f"unknown reference task {task!r}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _chain_kw(mode: str) -> dict:
+    return {} if mode == "plain" else {mode: True}
+
+
+@contextlib.contextmanager
+def _target_sizes():
+    """Count the NN kernel's launches by (K1 or K2, target count M) while the
+    block runs; the launch counters themselves are untouched."""
+    from icp_tpu_torch.ops import fused_nn
+
+    launch = fused_nn.launch_nn_kernel
+    sizes = collections.Counter()
+
+    def counted(query, targets, target_mask, return_coords):
+        sizes[f"{'K1' if return_coords else 'K2'} M={targets.shape[-2]}"] += 1
+        return launch(query, targets, target_mask, return_coords)
+
+    fused_nn.launch_nn_kernel = counted
+    try:
+        yield sizes
+    finally:
+        fused_nn.launch_nn_kernel = launch
+
+
+def _gate(label: str, got, want) -> float:
+    """Max translation deviation of CUDA float32 poses from the CPU float64
+    run; fails over POSE_AGREEMENT_TOL_M."""
+    import numpy as np
+
+    dt = float(np.linalg.norm(np.asarray(got, dtype=np.float64) - want, axis=-1).max())
+    if not dt <= POSE_AGREEMENT_TOL_M:
+        raise AssertionError(f"{label}: CUDA f32 vs CPU f64 max |dt| {dt} > "
+                             f"{POSE_AGREEMENT_TOL_M} m")
+    return dt
+
+
+def _ms_line(times) -> str:
+    return (f"median of {len(times)} {sorted(times)[len(times) // 2] * 1e3:.2f} ms (runs ms "
+            f"{', '.join(f'{x * 1e3:.2f}' for x in times)})")
+
+
+def _front_chains(torch, np, icp, dev, refs) -> dict:
+    """Phase 9a: all 120 seq1 sweeps, 119 pairs in one batch at the bucket
+    capacity, trimmed, plain / coarse / multiscale."""
+    from icp_tpu_torch import eval as ev
+    from icp_tpu_torch import geometry, odometry
+
+    sweeps, gt = _seq1(np)
+    scans = _stack(icp, sweeps, "bucket", torch.float32, dev)
+    c, s = np.cos(gt[:, 2]), np.sin(gt[:, 2])
+    gt_poses = icp.RigidTransform(
+        torch.tensor(np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)),
+        torch.tensor(gt[:, :2]))
+    dx, dy = np.diff(gt[:, 0]), np.diff(gt[:, 1])
+    truth = np.stack([c[:-1] * dx + s[:-1] * dy, -s[:-1] * dx + c[:-1] * dy], -1)
+    method, cfg = icp.from_method("trimmed", 2), icp.DriverConfig(**CHAIN_CFG)
+    cpu = refs["chains"].get()
+    paths = {}
+    for mode in CHAIN_MODES:
+        def run():
+            traj = odometry.chain_scans(scans, method, cfg, **_chain_kw(mode))
+            float(traj.poses.translation.sum())  # waits for the device
+            return traj
+
+        traj, times, launches = _timed_runs(run, 3)
+        paths[f"seq1 chain {mode}"] = launches
+        if launches["K1"] <= 0 or launches["K2"] <= 0:
+            raise AssertionError(f"seq1 chain {mode}: not through K1 and K2: {launches}")
+        poses = traj.poses.translation.double().cpu().numpy()
+        if poses.shape != (len(sweeps), 2) or not np.isfinite(poses).all():
+            raise AssertionError(f"seq1 chain {mode}: bad poses {poses.shape}")
+        step = np.linalg.norm(geometry.inverse(traj.relative).translation.double().cpu().numpy()
+                              - truth, axis=-1)
+        ate, rpe = ev.ate(traj.poses, gt_poses), ev.rpe(traj.poses, gt_poses)
+        dt = _gate(f"seq1 chain {mode}", poses, cpu[mode])
+        iters = traj.registration.iteration_count
+        _say("front-chain", f"seq1 {mode} chain, {len(sweeps) - 1} pairs at capacity "
+                            f"{scans.capacity}: {(len(sweeps) - 1) / sorted(times)[1]:.2f} "
+                            f"pairs/s, {_ms_line(times)}; iterations mean "
+                            f"{float(iters.float().mean()):.2f} max {int(iters.max())}; per-step "
+                            f"error vs ground truth max {step.max():.4e} median "
+                            f"{np.median(step):.4e} m; ATE rmse {ate.rmse:.4e} m, RPE trans rmse "
+                            f"{rpe.trans_rmse:.4e} m, rot rmse "
+                            f"{math.degrees(rpe.rot_rmse_rad):.4e} deg; launches {launches}; "
+                            f"CUDA f32 vs CPU f64 max |dt| {dt:.3e} m (gate "
+                            f"{POSE_AGREEMENT_TOL_M})")
+        if mode == "plain":
+            _say("front-trace", "seq1 plain chain: " + _trace(torch, run))
+    return paths
+
+
+def _front_streams(torch, np, icp, dev, refs) -> dict:
+    """Phase 9b: both streams over the first 32 sweeps at capacity 1024."""
+    from icp_tpu_torch import odometry
+
+    clouds = [icp.from_points(a, capacity=CAPACITY, dtype=torch.float32, device=dev)
+              for a in _seq1(np)[0][:STREAM_SCANS]]
+    method = icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9))
+
+    def stream(variant, scans):
+        out = list(getattr(odometry, variant)(scans, method, _bench_cfg(icp),
+                                              STREAM_TRANSLATION, STREAM_ANGLE))
+        float(out[-1][0].translation.sum())
+        return out
+
+    for variant in STREAMS:  # warm-up
+        stream(variant, clouds[:4])
+    _say("front-trace", "stream_odometry, 8 sweeps: " + _trace(
+        torch, lambda: stream(STREAMS[0], clouds[:8])))
+    ms, launches, results = {v: [] for v in STREAMS}, {}, {}
+    for rep in range(3):  # interleaved repeats
+        for variant in STREAMS:
+            if rep == 0:
+                _reset_launches()
+            t0 = time.perf_counter()
+            results[variant] = stream(variant, clouds)
+            ms[variant].append((time.perf_counter() - t0) / (len(clouds) - 1) * 1e3)
+            if rep == 0:
+                launches[f"stream {variant}"] = _read_launches()
+    cpu = refs["streams"].get()
+    for variant in STREAMS:
+        out = results[variant]
+        flags = [bool(f) for _, f, _ in out]
+        if flags != cpu[variant][1]:
+            raise AssertionError(f"{variant}: keyframe flags {flags} != CPU f64 {cpu[variant][1]}")
+        dt = _gate(variant, np.stack([p.translation.double().cpu().numpy() for p, _, _ in out]),
+                   cpu[variant][0])
+        med = sorted(ms[variant])[1]
+        _say("front-stream", f"{variant}, {len(clouds)} sweeps: {med:.2f} ms/scan (median of 3 "
+                             f"interleaved, runs {', '.join(f'{x:.2f}' for x in ms[variant])}); "
+                             f"keyframes {sum(flags)}, flags equal the CPU f64 run; launches "
+                             f"{launches[f'stream {variant}']}; max |dt| {dt:.3e} m")
+    return launches
+
+
+def _front_scan_to_map(torch, np, icp, dev, refs) -> dict:
+    """Phase 9c: scan-to-map over seq1, host and device maps; then the
+    64k-map merge of bench.py::run_mapping."""
+    from icp_tpu_torch import mapping
+    from icp_tpu_torch.utils.metrics import MetricsLogger
+
+    sweeps, gt = _seq1(np)
+    c0, s0 = math.cos(gt[0, 2]), math.sin(gt[0, 2])
+    truth = (gt[:, :2] - gt[0, :2]) @ np.array([[c0, -s0], [s0, c0]])  # in sweep 0's frame
+    cpu64, cpu32 = refs["scan_to_map"].get(), refs["scan_to_map_f32"].get()
+    paths = {}
+    for label, name, n, device_map in S2M_RUNS:
+        clouds = [icp.from_points(a, capacity=CAPACITY, dtype=torch.float32, device=dev)
+                  for a in sweeps[:n]]
+        method = icp.from_method(name, 2)
+
+        def run(scans, sink=None):
+            with MetricsLogger(sink) as log:
+                out = list(mapping.scan_to_map_odometry(
+                    scans, method, icp.DriverConfig(**CHAIN_CFG), voxel_size=VOXEL,
+                    map_capacity=MAP_CAPACITY, metrics=log, device_map=device_map))
+            float(out[-1][0].translation.sum())
+            return out
+
+        run(clouds[:4])  # warm-up
+        sink = io.StringIO()
+        _reset_launches()
+        with _target_sizes() as sizes:
+            t0 = time.perf_counter()
+            out = run(clouds, sink)
+            total = time.perf_counter() - t0
+        paths[f"scan-to-map {label}"] = launches = _read_launches()
+        if sum(launches.values()) <= 0:
+            raise AssertionError(f"scan-to-map {label}: no NN kernel launched")
+        flags = [bool(f) for _, f, _ in out]
+        last = json.loads(sink.getvalue().splitlines()[-1])
+        poses = np.stack([p.translation.double().cpu().numpy() for p, _, _ in out])
+        err = np.linalg.norm(poses - truth[:n], axis=-1)
+        ref64, ref32 = cpu64[label][0], cpu32[label][0]
+        dt = float(np.linalg.norm(poses[:S2M_GATED] - ref64, axis=-1).max())
+        dt32 = float(np.linalg.norm(ref32 - ref64, axis=-1).max())
+        if dt > POSE_AGREEMENT_TOL_M and dt32 <= POSE_AGREEMENT_TOL_M:
+            raise AssertionError(f"scan-to-map {label}: CUDA f32 misses the gate ({dt} m) where "
+                                 f"CPU f32 meets it ({dt32} m)")
+        verdict = ("met" if dt <= POSE_AGREEMENT_TOL_M else
+                   "missed, and the CPU float32 run misses it too: float32's")
+        _say("front-map", f"{label}, {n} sweeps (scan capacity {CAPACITY}, map "
+                          f"{MAP_CAPACITY}, voxel {VOXEL}): {total / (n - 1) * 1e3:.2f} ms/scan "
+                          f"(one pass, metrics on), keyframes {sum(flags)}, map points after "
+                          f"the last scan {last['map_points']}, launches {launches}, by target "
+                          f"count {dict(sizes)}; error vs ground truth max {err.max():.4f} "
+                          f"mean {err.mean():.4f} m (first above 0.1 m at sweep "
+                          f"{int(np.argmax(err > 0.1)) if (err > 0.1).any() else None}); first "
+                          f"{S2M_GATED} sweeps: flags equal the CPU f64 run "
+                          f"{flags[:S2M_GATED] == cpu64[label][1]}, CUDA f32 vs CPU f64 max |dt| "
+                          f"{dt:.3e} m, CPU f32 vs CPU f64 {dt32:.3e} m: gate "
+                          f"{POSE_AGREEMENT_TOL_M} {verdict}")
+    _front_merge(torch, np, icp, dev)
+    return paths
+
+
+def _front_merge(torch, np, icp, dev) -> None:
+    """Phase 9c, merge: one keyframe merge of a 4,096-point scan into a full
+    65,536-point map (seed 11, voxel 0.2), on the card against the host
+    ``LocalMap`` (with its copy of the map to the host); both trim toward
+    the scan's centroid."""
+    from icp_tpu_torch import mapping
+
+    rng = np.random.default_rng(11)
+    map_np = rng.uniform(-40, 40, (MERGE_MAP, 3)).astype(np.float32)
+    scan_np = rng.uniform(-5, 5, (MERGE_SCAN, 3)).astype(np.float32)
+    map_pts, scan_pts = (torch.tensor(x, device=dev) for x in (map_np, scan_np))
+    count = torch.tensor(MERGE_MAP, dtype=torch.int32, device=dev)
+    mask = torch.ones(MERGE_SCAN, dtype=torch.bool, device=dev)
+    center = torch.tensor(scan_np.mean(axis=0), device=dev)
+
+    def merge():
+        out, k = mapping.merge_map_device(map_pts, count, scan_pts, mask, MERGE_VOXEL,
+                                          MERGE_MAP, center)
+        return out, int(k)
+
+    merge()
+    dev_times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        out, k = merge()
+        dev_times.append(time.perf_counter() - t0)
+    host_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = mapping.LocalMap(MERGE_VOXEL, MERGE_MAP, map_pts.cpu().numpy()).merged_with(
+            scan_pts.cpu().numpy())
+        host_times.append(time.perf_counter() - t0)
+    got = out[:k].cpu().numpy()
+
+    def canon(a):
+        return a[np.lexsort(a.T[::-1])]
+
+    if k != len(host.points):
+        raise AssertionError(f"map merge: device count {k} != host {len(host.points)}")
+    diff = float(np.abs(canon(got) - canon(host.points)).max())
+    if not diff <= 1e-5:
+        raise AssertionError(f"map merge: device and host points differ as sets by {diff}")
+    _say("front-merge", f"{MERGE_MAP}-point map + {MERGE_SCAN}-point scan, voxel {MERGE_VOXEL}: "
+                        f"device {_ms_line(dev_times)}, host (incl. the map's copy to the host) "
+                        f"{_ms_line(host_times)}; {k} cells both, equal as sets (max |diff| "
+                        f"{diff:.2e})")
+
+
+def _front_server(torch, np, icp, dev) -> dict:
+    """Phase 9d: bench.py::run_serving on the card; every served pose against
+    a direct batched converge of the same pair (batches of 64)."""
+    from icp_tpu_torch.serve import BatchingRegistrar
+
+    a_pts, b_pts = (icp.io.parse_lidar_scan_array(os.path.join(REPO, f"ex_data/scan1/{f}.csv"))
+                    for f in ("first", "second"))
+    rng = np.random.default_rng(3)
+    sources, results = [], []
+
+    def perturbed():
+        ang = rng.uniform(-0.05, 0.05)
+        c, s = np.cos(ang), np.sin(ang)
+        src = a_pts @ np.array([[c, -s], [s, c]], dtype=np.float32) + rng.uniform(
+            -0.2, 0.2, 2).astype(np.float32)
+        sources.append(src)
+        return src
+
+    method = icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9))
+    cfg = _bench_cfg(icp)
+    with BatchingRegistrar(method, cfg, capacity=CAPACITY, max_batch_size=SERVE_BATCH,
+                           max_delay=SERVE_DELAY, device=dev) as reg:
+        results.append(reg.register(perturbed(), b_pts))  # warm-up
+        lats = []
+        for _ in range(20):  # low load: one client, blocking
+            t0 = time.perf_counter()
+            results.append(reg.register(perturbed(), b_pts))
+            lats.append(time.perf_counter() - t0)
+        tputs, p50s, p99s = [], [], []
+        for rep in range(3):  # bursts
+            if rep == 0:
+                _reset_launches()
+            t0 = time.perf_counter()
+            submits, futures = [], []
+            for _ in range(SERVE_BURST):
+                submits.append(time.perf_counter())
+                futures.append(reg.submit(perturbed(), b_pts))
+            done = []
+            for t_sub, fut in zip(submits, futures):
+                results.append(fut.result(timeout=600))
+                done.append(time.perf_counter() - t_sub)
+            tputs.append(SERVE_BURST / (time.perf_counter() - t0))
+            if rep == 0:
+                launches = _read_launches()
+            p50s.append(float(np.percentile(done, 50)) * 1e3)
+            p99s.append(float(np.percentile(done, 99)) * 1e3)
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"server: a burst did not launch K1 and K2: {launches}")
+    tgt = icp.stack([icp.from_points(b_pts, capacity=CAPACITY, dtype=torch.float32,
+                                     device=dev)] * SERVE_BATCH)
+    guess = icp.identity(2, (SERVE_BATCH,), dtype=torch.float32, device=dev)
+    worst = 0.0
+    for i in range(0, len(sources), SERVE_BATCH):
+        chunk = sources[i:i + SERVE_BATCH]
+        src = icp.stack([icp.from_points(p, capacity=CAPACITY, dtype=torch.float32, device=dev)
+                         for p in chunk + chunk[:1] * (SERVE_BATCH - len(chunk))])
+        direct, _ = icp.converge(method, src, tgt, guess, cfg)
+        want = direct.transform.translation[: len(chunk)].cpu().numpy()
+        got = np.stack([r.translation for r in results[i:i + SERVE_BATCH]])
+        worst = max(worst, float(np.linalg.norm(got - want, axis=-1).max()))
+    if not worst <= SERVE_TOL_M:
+        raise AssertionError(f"server: a served pose differs from the direct converge by {worst}")
+    _say("front-server", f"scan1 trimmed, capacity {CAPACITY}, max batch {SERVE_BATCH}, max delay "
+                         f"{SERVE_DELAY} s: low-load p50 {np.percentile(lats, 50) * 1e3:.2f} ms "
+                         f"(20 blocking requests); bursts of {SERVE_BURST} x 3: p50 "
+                         f"{np.median(p50s):.2f} ms ({', '.join(f'{x:.2f}' for x in p50s)}), p99 "
+                         f"{np.median(p99s):.2f} ms ({', '.join(f'{x:.2f}' for x in p99s)}), "
+                         f"{np.median(tputs):.2f} pairs/s ({', '.join(f'{x:.2f}' for x in tputs)})"
+                         f"; first burst's launches {launches}; {len(results)} results, none "
+                         f"raised, max |dt| vs direct converge {worst:.3e} m (gate {SERVE_TOL_M})")
+    return {"server burst (first of 3)": launches}
+
+
+def _front_seq3d(torch, np, icp, dev, refs) -> dict:
+    """Phase 9e: the 72 seq3d sweeps, gicp 3D chain with the per-scan
+    precompute cache; then coarse_align_3d on the 71 pairs."""
+    from icp_tpu_torch import odometry
+    from icp_tpu_torch.ops.coarse import coarse_align_3d
+
+    sweeps, gt_rot, gt_trans = _seq3d(np)
+    scans = _stack(icp, sweeps, "bucket", torch.float32, dev)
+    method = icp.from_method("gicp", 3, icp.Config(**GICP_3D))
+    cfg = icp.DriverConfig(**SEQ3D_CFG)
+
+    def run():
+        traj = odometry.chain_scans(scans, method, cfg)
+        float(traj.poses.translation.sum())
+        return traj
+
+    traj, times, launches = _timed_runs(run, 3)
+    if launches["K2"] <= 0:
+        raise AssertionError(f"seq3d gicp chain did not launch K2: {launches}")
+    poses = traj.poses.translation.double().cpu().numpy()
+    truth_end = gt_rot[0].T @ (gt_trans[-1] - gt_trans[0])
+    dt = _gate("seq3d gicp chain", poses[:SEQ3D_GATED], refs["seq3d"].get()["poses"])
+    iters = traj.registration.iteration_count
+    _say("front-seq3d", f"seq3d gicp 3D chain, {len(sweeps) - 1} pairs at capacity "
+                        f"{scans.capacity}: {_ms_line(times)} per call, iterations mean "
+                        f"{float(iters.float().mean()):.2f} max {int(iters.max())}, end-pose "
+                        f"error vs ground truth {np.linalg.norm(poses[-1] - truth_end):.4e} m, "
+                        f"launches {launches}; first {SEQ3D_GATED} sweeps: CUDA f32 vs CPU "
+                        f"f64 max |dt| {dt:.3e} m")
+    sources = icp.PointCloud(scans.points[:-1], scans.count[:-1])
+    targets = icp.PointCloud(scans.points[1:], scans.count[1:])
+
+    def coarse():
+        guess = coarse_align_3d(sources, targets)
+        float(guess.translation.sum())
+        return guess
+
+    guess, ctimes, claunches = _timed_runs(coarse, 5)
+    if claunches["K2"] != 1 or not torch.isfinite(guess.rotation).all():
+        raise AssertionError(f"coarse_align_3d: launches {claunches}, finite "
+                             f"{bool(torch.isfinite(guess.rotation).all())}")
+    _say("front-seq3d", f"coarse_align_3d on the {len(sweeps) - 1} pairs: {_ms_line(ctimes)}, "
+                        f"launches {claunches} (the 4 candidates of every pair in one K2 "
+                        f"launch)")
+    return {"seq3d gicp chain": launches, "seq3d coarse_align_3d": claunches}
+
+
+def _front_coarse2d(torch, np, icp, dev, refs) -> dict:
+    """Phase 9f: coarse_align_2d then trimmed, scan1, 1,024 lanes turned by
+    seeded angles in +-pi."""
+    from icp_tpu_torch import convert
+    from icp_tpu_torch.ops.coarse import coarse_align_2d
+
+    src_pts, a, b = _coarse_inputs(np)
+    counts = np.full(COARSE_LANES, len(a), dtype=np.int32)
+    padded = np.zeros((COARSE_LANES, CAPACITY, 2))
+    padded[:, : len(a)] = src_pts
+    src = convert.cloud_from_numpy(padded, counts, dtype=torch.float32, device=dev)
+    tgt = icp.stack([icp.from_points(b, capacity=CAPACITY, dtype=torch.float32,
+                                     device=dev)] * COARSE_LANES)
+    method, cfg = icp.from_method("trimmed", 2), _bench_cfg(icp)
+
+    def run():
+        guess = coarse_align_2d(src, tgt)
+        out, _ = icp.converge(method, src, tgt, guess, cfg)
+        float(out.cost.sum())
+        return guess, out
+
+    (guess, out), times, launches = _timed_runs(run, 3)
+    ref, _ = icp.converge(method, icp.from_points(a, dtype=torch.float32, device=dev),
+                          icp.from_points(b, dtype=torch.float32, device=dev),
+                          icp.identity(2, dtype=torch.float32, device=dev), cfg)
+    near = (torch.linalg.vector_norm(out.transform.translation - ref.transform.translation,
+                                     dim=-1) < NDT_CONVERGED_M).cpu().numpy()
+    cpu = refs["coarse2d"].get()
+    cpu_near = np.linalg.norm(cpu["translations"] - cpu["reference"], axis=-1) < NDT_CONVERGED_M
+    angles = torch.atan2(guess.rotation[:, 1, 0], guess.rotation[:, 0, 0]).double().cpu().numpy()
+    bins_off = np.abs(np.angle(np.exp(1j * (angles - cpu["angles"])))) / HIST_BIN
+    if not bins_off.max() <= 1.0:
+        raise AssertionError(f"coarse 2D: a card guess is {bins_off.max():.3f} bins from the CPU's")
+    _say("front-coarse2d", f"scan1, {COARSE_LANES} lanes turned by angles in +-pi: coarse + "
+                           f"trimmed {COARSE_LANES / sorted(times)[1]:.2f} pairs/s, "
+                           f"{_ms_line(times)}; converged lanes (within {NDT_CONVERGED_M} m of "
+                           f"the identity-seeded trimmed pose) card {int(near.sum())}/"
+                           f"{COARSE_LANES}; on every {COARSE_CPU_STRIDE}th lane card "
+                           f"{int(near[::COARSE_CPU_STRIDE].sum())}, CPU f64 "
+                           f"{int(cpu_near.sum())} of {len(cpu_near)}; card guesses vs CPU f64: "
+                           f"max {bins_off.max():.4f} bins, {int((bins_off > 1e-3).sum())} lanes "
+                           f"off by more than 1e-3 bin; launches {launches}")
+    return {"coarse 2d + trimmed": launches}
+
+
+def _phase_front_end(torch, np, icp, dev, refs) -> dict:
+    """Phase 9: the front end; returns the launches of each path."""
+    paths = _front_chains(torch, np, icp, dev, refs)
+    paths.update(_front_streams(torch, np, icp, dev, refs))
+    paths.update(_front_scan_to_map(torch, np, icp, dev, refs))
+    paths.update(_front_server(torch, np, icp, dev))
+    paths.update(_front_seq3d(torch, np, icp, dev, refs))
+    paths.update(_front_coarse2d(torch, np, icp, dev, refs))
+    _say("front-references", "CPU runs in worker processes, seconds: " + ", ".join(
+        f"{task} {refs[task].get()['seconds']:.1f}" for task in REFERENCE_TASKS))
+    torch.cuda.empty_cache()
+    return paths
+
+
+def main() -> int:
+    import multiprocessing
+
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     sys.path.insert(0, REPO)
+    import icp_tpu_torch  # noqa: F401  (fails here without the program)
+
+    # The workers run at the lowest priority, so that the host-bound timings
+    # of phases 3-9 keep the cores they need.
+    pool = multiprocessing.get_context("spawn").Pool(REFERENCE_WORKERS, initializer=os.nice,
+                                                      initargs=(19,))
+    try:
+        refs = {task: pool.apply_async(_phase9_reference, (task,)) for task in REFERENCE_TASKS}
+        return _phases(refs)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _phases(refs) -> int:
+    import numpy as np
+    import torch
+
     import icp_tpu_torch as icp
     from icp_tpu_torch import _build
     from icp_tpu_torch.ops import fused_nn, nn, pallas_nn
@@ -1089,6 +1720,8 @@ def main() -> int:
     phase_done("7 matrix")
     paths.update(_phase_families(torch, np, icp, dev))
     phase_done("8 families")
+    paths.update(_phase_front_end(torch, np, icp, dev, refs))
+    phase_done("9 front end")
     _say("seconds", ", ".join(f"phase {k} {v}" for k, v in phase_s.items()))
 
     def entry(k, name, replaces):

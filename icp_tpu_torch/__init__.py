@@ -5,8 +5,12 @@ Batched ICP on tensors: the five reference methods (2D ``vanilla``,
 net-new families ``point_to_plane``, ``robust``, ``symmetric``, ``gicp`` and
 ``ndt`` in 2D and 3D, the SE(2)/SE(3) maps (``lie``), the convergence
 drivers, multiscale registration (point decimation, and NDT's cell-size
-schedule), the scan/sweep/PLY readers and a ``register`` CLI
-(``python -m icp_tpu_torch.cli``).  The exact masked 1-NN
+schedule), the global initializers (``ops.coarse``) and outlier filter
+(``ops.filters``), the odometry front end (``odometry``: batched chains and
+keyframe streams; ``mapping``: scan-to-map against a voxel map), trajectory
+evaluation (``eval``, TUM files in ``io``), a micro-batching registration
+server (``serve.BatchingRegistrar``), the scan/sweep/PLY readers and a CLI
+(``python -m icp_tpu_torch.cli``: ``register``, ``odometry``).  The exact masked 1-NN
 correspondence is a CUDA kernel for Hopper (``csrc/nn.cu``, built with
 ``nvcc`` at first use).  The JAX package is the reference each module is
 tested against.  The entry points put their tensors on the card unless the
@@ -33,7 +37,22 @@ Quick start (on the card, in float32)::
 
 import torch
 
-from . import cloud, convert, driver, geometry, io, lie, methods, multiscale, ops
+from . import (
+    cloud,
+    convert,
+    driver,
+    eval,
+    geometry,
+    io,
+    lie,
+    mapping,
+    methods,
+    multiscale,
+    odometry,
+    ops,
+    serve,
+    utils,
+)
 from .cloud import PointCloud, bucket_capacity, from_points, pad_to, stack, to_numpy
 from .config import Config
 from .driver import ConvergenceState, DriverConfig, converge, converge_stepped, make_converge_fn
@@ -48,6 +67,7 @@ from .methods import (
     registered_methods,
 )
 from .multiscale import converge_multiscale
+from .serve import BatchingRegistrar
 
 # Pose math needs full float32 precision: TF32 pushes composed rotations off
 # SO(D) and moves converged poses by centimetres.
@@ -57,6 +77,7 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 __all__ = [
+    "BatchingRegistrar",
     "Config",
     "ConvergenceState",
     "DriverConfig",
@@ -72,6 +93,7 @@ __all__ = [
     "converge_stepped",
     "convert",
     "driver",
+    "eval",
     "from_angle_2d",
     "from_method",
     "from_points",
@@ -83,15 +105,19 @@ __all__ = [
     "is_method_registered",
     "lie",
     "make_converge_fn",
+    "mapping",
     "methods",
     "multiscale",
+    "odometry",
     "ops",
     "pad_to",
     "parse_lidar_scan",
     "read_ply",
     "register_method",
     "registered_methods",
+    "serve",
     "stack",
     "to_numpy",
+    "utils",
     "write_ply",
 ]

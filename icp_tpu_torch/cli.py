@@ -1,18 +1,27 @@
 """Command-line interface: ``python -m icp_tpu_torch.cli``.
 
-Port of the ``register`` and ``methods`` subcommands of :mod:`icp_tpu.cli`:
+Port of the ``register``, ``odometry`` and ``methods`` subcommands of
+:mod:`icp_tpu.cli`:
 
 * ``register`` — one-shot registration of a 2D scan pair (CSV, or a ``.conf``
   polar sweep) or, with ``--ply``, a 3D PLY pair, under the driver flags;
-  prints the pose (``--json``: one JSON object) and can write the moved
-  source (``--out-ply``).  Inputs load in float32 with power-of-two bucket
-  capacity (``--exact-capacity``: a multiple of 8), as in the JAX CLI.
+  ``--sor`` filters outliers from both clouds first, ``--coarse`` seeds the
+  registration with the global initializer.  Prints the pose (``--json``:
+  one JSON object) and can write the moved source (``--out-ply``).
+* ``odometry`` — a scan sequence into a trajectory: every consecutive pair
+  in one batch (``--coarse``, ``--multiscale``), or ``--scan-to-map``
+  against an aggregated voxel map (``--device-map`` keeps it on the card);
+  one JSON record per scan, and with ``--eval GT_TUM`` one more with the
+  ATE and RPE against a TUM ground truth.
 * ``methods`` — list the registry (the reference prints it on an unknown
   method, ``vis/main.cpp:133-139``).
 
-``--platform gpu`` (the default) runs on the CUDA card and fails without
-one; ``--platform cpu`` runs on the CPU.  The JAX CLI's ``--sor``,
-``--coarse`` and ``--aot-cache`` are not ported.
+Inputs load in float32 with power-of-two bucket capacity
+(``--exact-capacity``: a multiple of 8), as in the JAX CLI.  ``--platform
+gpu`` (the default) runs on the CUDA card and fails without one;
+``--platform cpu`` runs on the CPU.  The JAX CLI's ``--aot-cache`` is not
+ported; its SLAM flags (``--optimize``, ``--loop-*``, ``--online``, ...) are
+not registered, so they are refused.
 """
 
 from __future__ import annotations
@@ -119,9 +128,18 @@ def cmd_register(args):
         source = _load_scan(args.src, cap, device)
         target = _load_scan(args.dst, cap, device)
         dim = 2
+    if args.sor:
+        from .ops.filters import remove_statistical_outliers
+
+        source = remove_statistical_outliers(source)
+        target = remove_statistical_outliers(target)
     method = _make_method(args.method, dim, config)
     cfg = _driver_config(args)
     guess = geometry.identity(dim, dtype=torch.float32, device=device)
+    if args.coarse:
+        from .ops.coarse import coarse_align_2d, coarse_align_3d
+
+        guess = (coarse_align_2d if dim == 2 else coarse_align_3d)(source, target)
 
     t0 = time.perf_counter()
     if args.multiscale:
@@ -158,6 +176,109 @@ def cmd_register(args):
         print(f"wrote {args.out_ply}")
 
 
+def _cli_capacity(cap: int, args) -> int:
+    """The power-of-two bucket of ``cap`` unless ``--exact-capacity``."""
+    from .cloud import bucket_capacity
+
+    return cap if args.exact_capacity else bucket_capacity(cap)
+
+
+def _eval_against_tum(poses, gt_path: str, dim: int) -> None:
+    """ATE (Umeyama-aligned) and RPE of ``poses`` against a TUM ground-truth
+    file, one JSON line on stdout."""
+    from . import eval as ev
+    from .io import read_tum
+
+    _, gt = read_tum(gt_path, dim=dim, device="cpu")
+    n_gt, n_est = gt.translation.shape[0], poses.translation.shape[0]
+    if n_gt != n_est:
+        raise SystemExit(
+            f"--eval: ground truth has {n_gt} poses but the trajectory has "
+            f"{n_est} (one TUM line per scan required)")
+    record = {"eval_against": gt_path}
+    record.update(ev.ate(poses, gt).as_dict())
+    record.update(ev.rpe(poses, gt).as_dict())
+    print(json.dumps(record))
+
+
+def _pose_record(path: str, rotation, translation) -> dict:
+    return {"scan": path, "rotation": rotation.cpu().numpy().tolist(),
+            "translation": translation.cpu().numpy().tolist()}
+
+
+def _odometry_clouds(args, device):
+    """The scans as a list of clouds at one capacity."""
+    from .cloud import from_points, pad_to
+    from .io import read_ply
+
+    if args.ply:
+        clouds = [from_points(read_ply(p), dtype=torch.float32, device=device)
+                  for p in args.scans]
+    else:
+        clouds = [_load_scan(p, None, device) for p in args.scans]
+    cap = _cli_capacity(max(c.capacity for c in clouds), args)
+    return [pad_to(c, cap) for c in clouds]
+
+
+def _scan_to_map(args, device, dim) -> None:
+    from . import mapping
+    from .geometry import RigidTransform
+
+    if args.method in ("trimmed", "vanilla", "feature_aware"):
+        print(f"hint: method '{args.method}' is a hard-overlap method; the aggregated map "
+              "always contains unobserved regions, which 'robust' down-weights (in long "
+              "corridors robust can stall: see icp_tpu_torch.mapping)", file=sys.stderr)
+    for flag in ("coarse", "multiscale"):
+        if getattr(args, flag):
+            print(f"warning: --{flag} is not supported with --scan-to-map and is ignored",
+                  file=sys.stderr)
+    clouds = _odometry_clouds(args, device)
+    method = _make_method(args.method, dim, _parse_config(args.config))
+    poses = []
+    for t, (pose, is_kf, result) in enumerate(mapping.scan_to_map_odometry(
+            clouds, method, _driver_config(args), voxel_size=args.voxel_size,
+            map_capacity=args.map_capacity, device_map=args.device_map)):
+        poses.append(pose)
+        rec = _pose_record(args.scans[t], pose.rotation, pose.translation)
+        rec["keyframe"] = bool(is_kf)
+        if result is not None:
+            rec["iterations"] = int(result.iteration_count)
+            rec["cost"] = float(result.cost)
+        print(json.dumps(rec))
+    if args.eval:
+        _eval_against_tum(RigidTransform(torch.stack([p.rotation for p in poses]),
+                                         torch.stack([p.translation for p in poses])),
+                          args.eval, dim)
+
+
+def cmd_odometry(args):
+    from . import odometry
+    from .cloud import pad_to, stack
+    from .io import parse_lidar_scan_batch
+
+    device = _device(args.platform)
+    dim = 3 if args.ply else 2
+    if args.scan_to_map:
+        return _scan_to_map(args, device, dim)
+    if args.ply or any(p.endswith(".conf") for p in args.scans):
+        scans = stack(_odometry_clouds(args, device))
+    else:
+        scans = parse_lidar_scan_batch(args.scans, dtype=torch.float32, device=device)
+        scans = pad_to(scans, _cli_capacity(scans.capacity, args))
+    method = _make_method(args.method, dim, _parse_config(args.config))
+    traj = odometry.chain_scans(scans, method, _driver_config(args), coarse=args.coarse,
+                                multiscale=args.multiscale)
+    poses = traj.poses
+    for t, path in enumerate(args.scans):
+        rec = _pose_record(path, poses.rotation[t], poses.translation[t])
+        if t > 0:
+            rec["iterations"] = int(traj.registration.iteration_count[t - 1])
+            rec["cost"] = float(traj.registration.cost[t - 1])
+        print(json.dumps(rec))
+    if args.eval:
+        _eval_against_tum(poses, args.eval, dim)
+
+
 def cmd_methods(args):
     from .methods import registered_methods
 
@@ -187,8 +308,17 @@ def main(argv=None):
     p_reg.add_argument("-c", "--config", nargs="*", help="method config key=value")
     p_reg.add_argument("--ply", action="store_true", help="inputs are 3D PLY clouds")
     p_reg.add_argument(
+        "--sor", action="store_true",
+        help="statistical outlier removal on both clouds before registration",
+    )
+    p_reg.add_argument(
         "--multiscale", action="store_true",
         help="coarse-to-fine pyramid (decimate 4x, then full resolution)",
+    )
+    p_reg.add_argument(
+        "--coarse", action="store_true",
+        help="global rotation initializer: bearing-histogram correlation (2D) "
+        "or principal-axes candidates (3D)",
     )
     p_reg.add_argument(
         "--exact-capacity", action="store_true",
@@ -198,6 +328,41 @@ def main(argv=None):
     p_reg.add_argument("--out-ply", help="write transformed source cloud")
     _add_driver_flags(p_reg)
     p_reg.set_defaults(fn=cmd_register)
+
+    p_odo = sub.add_parser("odometry", help="chain a scan sequence into a trajectory")
+    p_odo.add_argument("--scans", nargs="+", required=True,
+                       help="ordered scan CSVs or .conf sweeps (or PLYs with --ply)")
+    p_odo.add_argument("--ply", action="store_true", help="scans are 3D PLY clouds")
+    p_odo.add_argument(
+        "--exact-capacity", action="store_true",
+        help="pad to the largest scan rounded up to 8 instead of its power-of-two bucket",
+    )
+    p_odo.add_argument("-m", "--method", default="trimmed")
+    p_odo.add_argument("-c", "--config", nargs="*", help="method config key=value")
+    p_odo.add_argument(
+        "--coarse", action="store_true",
+        help="seed every pair with the global initializer (sharp turns)",
+    )
+    p_odo.add_argument("--multiscale", action="store_true",
+                       help="register pairs through the coarse-to-fine pyramid")
+    p_odo.add_argument(
+        "--scan-to-map", action="store_true",
+        help="register each scan against an aggregated voxel map (less drift)",
+    )
+    p_odo.add_argument("--voxel-size", type=float, default=0.1)
+    p_odo.add_argument("--map-capacity", type=int, default=8192)
+    p_odo.add_argument(
+        "--device-map", action="store_true",
+        help="(--scan-to-map) keep the map on the device at fixed shapes instead of "
+        "merging it on the host",
+    )
+    p_odo.add_argument(
+        "--eval", metavar="GT_TUM",
+        help="evaluate the trajectory against a TUM ground-truth file (one line per "
+        "scan): one more JSON record with the Umeyama-aligned ATE and delta-1 RPE",
+    )
+    _add_driver_flags(p_odo)
+    p_odo.set_defaults(fn=cmd_odometry)
 
     p_m = sub.add_parser("methods", help="list registered methods")
     p_m.set_defaults(fn=cmd_methods)

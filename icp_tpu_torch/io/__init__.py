@@ -1,8 +1,10 @@
-"""Input parsers (numpy, then tensors on the card unless ``device="cpu"``)."""
+"""Input parsers and trajectory files (numpy, then tensors on the card unless
+``device="cpu"``)."""
 
 from .ply import read_ply, write_ply
 from .scan_conf import parse_sweep, parse_sweep_conf, sweep_to_points
 from .scan_csv import parse_lidar_scan, parse_lidar_scan_array, parse_lidar_scan_batch
+from .trajectory import read_tum, write_tum
 
 __all__ = [
     "parse_lidar_scan",
@@ -11,6 +13,8 @@ __all__ = [
     "parse_sweep",
     "parse_sweep_conf",
     "read_ply",
+    "read_tum",
     "sweep_to_points",
     "write_ply",
+    "write_tum",
 ]

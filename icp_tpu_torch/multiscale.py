@@ -19,6 +19,7 @@ from .cloud import PointCloud
 from .driver import ConvergenceState, DriverConfig, converge
 from .geometry import RigidTransform
 from .methods.base import Method
+from .ops.coarse import coarse_align_2d, coarse_align_3d
 
 
 def decimate(cloud: PointCloud, factor: int) -> PointCloud:
@@ -95,20 +96,19 @@ def converge_ndt_multiscale(
     ``cell_size`` scaled) and driver config.  Returns the fine level's
     ``(ConvergenceState, method state)``.
 
-    ``coarse_init=True`` (the JAX package's global coarse initializer,
-    ``ops/coarse``) is not ported yet and raises ``NotImplementedError``.
+    ``coarse_init=True`` replaces ``guess`` with the global initializer
+    (:func:`~icp_tpu_torch.ops.coarse.coarse_align_2d` or ``_3d``): NDT's
+    score surface is only as wide as its coarsest Gaussians, so use it where
+    no trustworthy guess exists (global localization, map-merge seeding).
     """
     from .config import Config
     from .methods import from_method
 
-    if coarse_init:
-        raise NotImplementedError(
-            "converge_ndt_multiscale(coarse_init=True) needs ops/coarse, which is not "
-            "ported yet (ROADMAP queue 1, item 8)"
-        )
     cfg = ndt_config if ndt_config is not None else Config()
     cell_size = float(cfg.get("cell_size", 1.0))
     current = guess
+    if coarse_init:
+        current = (coarse_align_2d if dim == 2 else coarse_align_3d)(source, target)
     for s in sorted((float(x) for x in scales), reverse=True):
         if s <= 1.0:
             continue

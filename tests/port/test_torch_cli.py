@@ -1,7 +1,9 @@
-"""``python -m icp_tpu_torch.cli``: ``register`` and ``methods`` against the
-JAX CLI, both on the CPU.  Both load their inputs in float32, so poses agree
-at float32 tolerance (atol 1e-5); iteration counts are equal."""
+"""``python -m icp_tpu_torch.cli``: ``register``, ``odometry`` and ``methods``
+against the JAX CLI, both on the CPU.  Both load their inputs in float32, so
+poses agree at float32 tolerance (atol 1e-5); iteration counts and keyframe
+flags are equal, and so are the ``--eval`` records (rtol 1e-4)."""
 
+import glob
 import json
 import os
 
@@ -9,8 +11,8 @@ import numpy as np
 import pytest
 
 from icp_tpu import cli as jax_cli
-from icp_tpu_torch import cli
-from icp_tpu_torch.io import read_ply
+from icp_tpu_torch import cli, convert
+from icp_tpu_torch.io import read_ply, write_tum
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DATA = os.path.join(REPO, "ex_data")
@@ -101,3 +103,113 @@ def test_gpu_platform_needs_a_card(capsys, monkeypatch):
     monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         cli.main(["register", *CASES["scan1 trimmed"]])
+
+
+def test_register_sor_and_coarse_match_jax_cli(capsys):
+    args = [*CASES["scan1 trimmed"], "--sor", "--coarse"]
+    got = _run(cli.main, capsys, args)
+    want = _run(jax_cli.main, capsys, args)
+    assert got["iterations"] == want["iterations"]
+    np.testing.assert_allclose(got["rotation"], want["rotation"], atol=1e-5)
+    np.testing.assert_allclose(got["translation"], want["translation"], atol=1e-5)
+
+
+SWEEPS = sorted(glob.glob(f"{DATA}/seq1/sweep_*.conf"))[:6]
+
+
+@pytest.fixture(scope="module")
+def gt_tum(tmp_path_factory):
+    """seq1's ground truth of the first 6 sweeps as a 2D TUM file."""
+    with open(f"{DATA}/seq1/groundtruth.json") as f:
+        gt = np.asarray(json.load(f)["poses"])[: len(SWEEPS)]
+    c, s = np.cos(gt[:, 2]), np.sin(gt[:, 2])
+    path = str(tmp_path_factory.mktemp("gt") / "seq1.tum")
+    write_tum(path, convert.transform_from_numpy(
+        np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2), gt[:, :2], device="cpu"))
+    return path
+
+
+def _odometry(main, capsys, args):
+    main(["--platform", "cpu", "odometry", *args])
+    captured = capsys.readouterr()
+    return [json.loads(line) for line in captured.out.strip().splitlines()], captured.err
+
+
+ODOMETRY = {
+    "batch": ["--scans", *SWEEPS],
+    "batch csv": ["--scans", f"{DATA}/scan1/first.csv", f"{DATA}/scan1/second.csv",
+                  f"{DATA}/scan1/first.csv", "--exact-capacity"],
+    "scan-to-map": ["--scans", *SWEEPS, "--scan-to-map", "-m", "robust",
+                    "--voxel-size", "0.1", "--map-capacity", "2048"],
+    "scan-to-map device map": ["--scans", *SWEEPS, "--scan-to-map", "-m", "robust",
+                               "--map-capacity", "2048", "--device-map"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(ODOMETRY))
+def test_odometry_matches_jax_cli(capsys, gt_tum, case):
+    args = ODOMETRY[case] + (["--eval", gt_tum] if "csv" not in case else [])
+    got, _ = _odometry(cli.main, capsys, args)
+    want, _ = _odometry(jax_cli.main, capsys, args)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        if "eval_against" in w:
+            for key in w:
+                if key != "eval_against":
+                    np.testing.assert_allclose(g[key], w[key], rtol=1e-4, atol=1e-7)
+            continue
+        assert g["scan"] == w["scan"] and g.get("keyframe") == w.get("keyframe")
+        assert g.get("iterations") == w.get("iterations")
+        np.testing.assert_allclose(g["rotation"], w["rotation"], atol=1e-5)
+        np.testing.assert_allclose(g["translation"], w["translation"], atol=1e-5)
+    assert ("eval_against" in got[-1]) == ("csv" not in case)
+
+
+@pytest.mark.parametrize("flag", ["--coarse", "--multiscale"])
+def test_odometry_flags_run_the_library_chain(capsys, flag):
+    """``--coarse`` / ``--multiscale`` print the library's float32 chain
+    exactly.  (Against the JAX CLI they agree only to float32's reach: the
+    coarse guess's sub-bin parabola cancels, c0 - 2 c1 + c2, so the two
+    frameworks' float32 guesses differ by ~1e-5 rad; the chains are held
+    against JAX in float64 in test_torch_odometry.py.)"""
+    import torch
+
+    import icp_tpu_torch as T
+    from icp_tpu_torch import odometry
+
+    got, _ = _odometry(cli.main, capsys, ["--scans", *SWEEPS, flag])
+    clouds = [T.io.parse_sweep(p, dtype=torch.float32, device="cpu") for p in SWEEPS]
+    cap = T.bucket_capacity(max(c.capacity for c in clouds))
+    traj = odometry.chain_scans(
+        T.stack([T.pad_to(c, cap) for c in clouds]), T.from_method("trimmed", 2),
+        T.DriverConfig(max_iterations=100, angle_tolerance=float(np.deg2rad(0.1)),
+                       translation_tolerance=0.1), **{flag[2:]: True})
+    for t, rec in enumerate(got):
+        assert rec["translation"] == traj.poses.translation[t].tolist()
+        assert rec["rotation"] == traj.poses.rotation[t].tolist()
+        if t:
+            assert rec["iterations"] == int(traj.registration.iteration_count[t - 1])
+
+
+def test_odometry_scan_to_map_hint_and_ignored_flags(capsys):
+    got, err = _odometry(cli.main, capsys, ["--scans", *SWEEPS[:3], "--scan-to-map",
+                                            "--coarse", "--multiscale", "--max-iterations", "5"])
+    assert len(got) == 3 and got[0]["keyframe"] is True
+    assert "hint: method 'trimmed' is a hard-overlap method" in err
+    assert "--coarse is not supported with --scan-to-map" in err
+    assert "--multiscale is not supported with --scan-to-map" in err
+
+
+@pytest.mark.parametrize("flag", ["--optimize", "--online", "--loop-radius=2.0"])
+def test_odometry_refuses_slam_flags(capsys, flag):
+    """The SLAM flags come with the SLAM modules; until then argparse refuses them."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--platform", "cpu", "odometry", "--scans", *SWEEPS[:2], flag])
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_odometry_eval_pose_count_mismatch(capsys, gt_tum):
+    with pytest.raises(SystemExit, match="ground truth has 6 poses"):
+        cli.main(["--platform", "cpu", "odometry", "--scans", *SWEEPS[:3], "--eval", gt_tum])

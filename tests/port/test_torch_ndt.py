@@ -4,7 +4,9 @@
 Exact: map keys, counts, validity and overflow, lookup hits and slots
 (``dense`` against ``sorted``, and each against JAX), iteration counts.
 Within 1e-9: means and covariances (rtol), poses (atol) and costs (rtol).
-Inputs are seeded clouds of up to ~300 points and the in-repo scan1 pair.
+Inputs are seeded clouds of up to ~300 points and the in-repo scan1 pair;
+``converge_ndt_multiscale(coarse_init=True)`` starts from the global
+initializer of ``ops/coarse``, as in JAX.
 The ``cuda``-marked twins build maps and run p2d and d2d on the card in
 float32 against the CPU float64 run.
 """
@@ -279,11 +281,24 @@ def test_ndt_multiscale_schedule_order():
 
 
 def test_ndt_multiscale_coarse_init_raises():
-    a = _room(2, 1, 20)
-    cloud = T.from_points(a, device="cpu")
-    with pytest.raises(NotImplementedError, match="ops/coarse"):
-        converge_ndt_multiscale(cloud, cloud, T.identity(2, device="cpu"),
-                                T.DriverConfig(**BENCH), coarse_init=True)
+    """``coarse_init=True`` against JAX: the global initializer replaces the
+    guess (here 2 rad off, far outside NDT's basin) and the schedule
+    converges from it as the JAX package does, two lanes, 2D room."""
+    a = _room(2, 1, 60)
+    b = a @ np.array([[np.cos(2.0), -np.sin(2.0)], [np.sin(2.0), np.cos(2.0)]]).T + [0.5, -0.3]
+    (js, jt, jg), (ts, tt, tg) = _sides(a, b, np.eye(2)[None].repeat(2, 0),
+                                         np.array([[0.0, 0.0], [3.0, 1.0]]))
+    kw = dict(dim=2, scales=(4.0,), coarse_max_iterations=6, coarse_init=True)
+    ms_cfg = dict(cell_size=0.5, cells=512)
+    jres = jax.jit(lambda s, t, g: j_ndt_multiscale(
+        s, t, g, J.DriverConfig(**BENCH), ndt_config=J.Config(**ms_cfg), **kw)[0])(js, jt, jg)
+    tres, _ = converge_ndt_multiscale(ts, tt, tg, T.DriverConfig(**BENCH),
+                                      ndt_config=T.Config(**ms_cfg), **kw)
+    _assert_results_equal(tres, jres)
+    # Both lanes start from the same coarse guess, whatever their own guess.
+    torch.testing.assert_close(tres.transform.translation[0], tres.transform.translation[1])
+    angle = float(torch.atan2(tres.transform.rotation[0, 1, 0], tres.transform.rotation[0, 0, 0]))
+    assert abs(angle - 2.0) < 0.02
 
 
 def test_ndt_config_validated():
