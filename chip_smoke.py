@@ -85,13 +85,35 @@
    converged lanes on the card and (every 4th lane) on the CPU, each card
    guess within one histogram bin of the CPU float64 guess.
 
+10. The pose-graph back end (float32 on the card): (a) ``read_g2o`` ->
+   ``optimize(solver='pcg')`` on m600 and m3500 (30 GN x 50 PCG) and
+   sphere2500 (40 x 60): chi² before and after, ms and kernels per GN
+   iteration, the busy share of a traced 3-iteration solve, the JAX tests' bounds
+   (``tests/test_manhattan_g2o.py``), poses against CPU float64 (a miss
+   counts as float32's only if CPU float32 misses too) and two card runs
+   against each other; (b) the 10k-node / 30k-edge synthetic graph of
+   ``bench.py::run_pose_graph`` (5 GN x 50 PCG): ms per GN iteration, cost
+   drop, kernels, busy share, peak memory; (c) m600 robust: gnc_gm + pcg at
+   the auto scale on the loop-like edges (~1.79, chi² ~1.3e3), two-pass
+   welsch (``robust_solve``) and ``robust_solve_fused`` against it, one
+   outlier-protocol cell (random, 0.2, welsch, 2 passes, seed 3: recall and
+   inliers kept 1.0); (d) offline loop closure over the 240
+   ``ex_data/seq2loop`` sweeps, the kernel path: parse at capacity 1,024,
+   the trimmed chain (to 1e-6), loop candidates (radius 2, separation 10),
+   every candidate registered in one batch, the graph (loop weight 100)
+   and a two-pass welsch solve on the closures: ms and K1/K2 launches per
+   stage, ATE / RPE against the ground truth before and after, every 8th
+   closure and the card's own graph against CPU runs (float64; float32
+   where a row misses the gate), and K1 / K2 exact on the batch as run.
+
 Phase 3 also runs K1 and K2 on the queen-scale pair itself,
 (1, 10720, 10720, 3) float32, timed beside its bound, the plain version and
 the library yardstick, and on phase 7's inputs (scans 1-3 at B = 256 under
 its guesses: (256, 1024, 1024, 2) and scan2's (256, 1096, 1096, 2), whose
 last query block is ragged), scan1 under phase 8's hard guesses, and phase
 9's shapes (the seq1 chain's 119 pairs, a 1,024-point scan against an
-8,192-point map, the 71 seq3d pairs at 2,048 in 3D), exact.
+8,192-point map, the 71 seq3d pairs at 2,048 in 3D) and phase 10's seq2loop
+closure batch (its candidates on the ground-truth trajectory), exact.
 Each phase prints its seconds; the kernels line lists every case held exact
 and the launches of every path.
 
@@ -270,6 +292,8 @@ def _nn_cases(torch, np, dev):
     cases.append((f"seq3d pairs ({len(seq3d.count) - 1}, {seq3d.capacity}, {seq3d.capacity}, "
                   "3) f32", None, seq3d.points[:-1], seq3d.points[1:].contiguous(),
                   seq3d.mask[1:].contiguous()))
+    # Phase 10's shape: the seq2loop closure batch.
+    cases.append(_closure_case(torch, np, icp, dev))
     return cases
 
 
@@ -1000,7 +1024,7 @@ SERVE_BURST, SERVE_BATCH, SERVE_DELAY, SERVE_TOL_M = 512, 64, 0.005, 1e-5
 COARSE_LANES, COARSE_CPU_STRIDE = 1024, 4
 HIST_BIN = 2 * math.pi / 180  # coarse_align_2d's 180 bins
 # The CPU runs phase 9 is held against, longest first; REFERENCE_WORKERS
-# processes compute them while the card runs phases 3-9.
+# processes compute them while the card runs phases 3-9 (and then phase 10's).
 REFERENCE_TASKS = ("chains", "seq3d", "coarse2d", "scan_to_map", "scan_to_map_f32", "streams")
 REFERENCE_WORKERS = 3
 
@@ -1539,6 +1563,432 @@ def _phase_front_end(torch, np, icp, dev, refs) -> dict:
     return paths
 
 
+# Phase 10: the pose-graph back end, after tests/test_manhattan_g2o.py (the
+# three bundled graphs at the JAX tests' budgets and bounds),
+# bench.py::run_pose_graph (:739-799, the 10k-node / 30k-edge graph), the
+# verify recipes on m600 (gnc_gm + pcg, two-pass welsch, one outlier-protocol
+# cell) and offline loop closure over ex_data/seq2loop (the kernel path).
+MANHATTAN = "ex_data/manhattan"
+# (name, GN iterations, PCG steps, chi² bound per edge: 3·dof in 2D, 6·dof in 3D)
+G2O_CELLS = (("m600", 30, 50, 9), ("m3500", 30, 50, 9), ("sphere2500", 40, 60, 36))
+G2O_DROP = {"m600": 1e-3, "m3500": 1e-4, "sphere2500": 1e-3}
+SYNTH_NODES, SYNTH_LOOPS, SYNTH_GN, SYNTH_CG = 10_000, 20_000, 5, 50
+SEQ2LOOP = "ex_data/seq2loop"
+LOOP_RADIUS, LOOP_MIN_SEP, LOOP_WEIGHT, CLOSURE_CPU_STRIDE = 2.0, 10, 100.0, 8
+PROTOCOL_CELL = dict(rates=(0.2,), modes=("random",), kernels=("welsch",), solver="pcg",
+                     seed=3, scale_passes=2)
+
+
+def _seq2loop(np):
+    """The 240 seq2loop sweeps as (n, 2) arrays, the ground-truth poses
+    (x, y, theta), and the sweeps' paths."""
+    import glob
+
+    from icp_tpu_torch.io import parse_sweep_conf, sweep_to_points
+
+    paths = sorted(glob.glob(os.path.join(REPO, SEQ2LOOP, "sweep_*.conf")))
+    with open(os.path.join(REPO, SEQ2LOOP, "groundtruth.json")) as f:
+        gt = np.asarray(json.load(f)["poses"])
+    return [sweep_to_points(parse_sweep_conf(p)) for p in paths], gt, paths
+
+
+def _gt_transform(icp, torch, np, gt):
+    c, s = np.cos(gt[:, 2]), np.sin(gt[:, 2])
+    return icp.RigidTransform(
+        torch.tensor(np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)),
+        torch.tensor(gt[:, :2]))
+
+
+def _closure_case(torch, np, icp, dev):
+    """Phase 3's input at the closure batch's shape: seq2loop's candidate
+    pairs on the ground-truth trajectory (the radius and separation of
+    phase 10d), each source moved by its ground-truth relative pose."""
+    from icp_tpu_torch import geometry, pose_graph
+
+    sweeps, gt, _ = _seq2loop(np)
+    scans = _stack(icp, sweeps, CAPACITY, torch.float32, dev)
+    truth = _gt_transform(icp, torch, np, gt)
+    truth = icp.RigidTransform(truth.rotation.float().to(dev), truth.translation.float().to(dev))
+    cands = pose_graph.find_loop_candidates(truth, LOOP_RADIUS, LOOP_MIN_SEP).long()
+    i, j = cands[:, 0], cands[:, 1]
+    seed = geometry.compose(geometry.inverse(pose_graph._gather(truth, i)),
+                            pose_graph._gather(truth, j))
+    q = geometry.apply(seed, scans.points[j]).contiguous()
+    return (f"seq2loop closure batch ({len(cands)}, {CAPACITY}, {CAPACITY}, 2) f32", None, q,
+            scans.points[i].contiguous(), scans.mask[i].contiguous())
+
+
+def _phase10_reference(task: str, payload=None) -> dict:
+    """One group of phase 10's CPU runs of the port (a worker process's
+    job), float64 and float32; returns numpy arrays."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(2)
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import convert, pose_graph
+
+    t0 = time.perf_counter()
+    out = {}
+    if task == "g2o":
+        name, dtype = payload
+        _, iters, cg, _ = next(cell for cell in G2O_CELLS if cell[0] == name)
+        graph = icp.io.read_g2o(os.path.join(REPO, MANHATTAN, f"{name}.g2o"),
+                                dtype=getattr(torch, dtype), device="cpu")
+        opt, costs = pose_graph.optimize(graph, iterations=iters, solver="pcg",
+                                         cg_iterations=cg)
+        out["translation"], out["costs"] = (opt.poses.translation.double().numpy(),
+                                            costs.double().numpy())
+    elif task == "seq2loop_graph":
+        fields, n_loop, dtype = payload
+        graph = convert.pose_graph_from_numpy(fields, dtype=getattr(torch, dtype), device="cpu")
+        mask = torch.arange(graph.num_edges) >= graph.num_edges - n_loop
+        opt, _, scale, _ = pose_graph.robust_solve(graph, robust_edges=mask)
+        out["translation"], out["scale"] = opt.poses.translation.double().numpy(), scale
+    elif task == "seq2loop_closures":
+        rotation, translation, cands, dtype = payload
+        scans = _stack(icp, _seq2loop(np)[0], CAPACITY, getattr(torch, dtype), "cpu")
+        poses = convert.transform_from_numpy(rotation, translation, dtype=getattr(torch, dtype),
+                                             device="cpu")
+        _, meas, _ = pose_graph.register_loop_closures(
+            scans, poses, cands, icp.from_method("trimmed", 2), icp.DriverConfig(**CHAIN_CFG))
+        out["translation"] = meas.translation.double().numpy()
+    else:
+        raise ValueError(f"unknown reference task {task!r}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _float32_gate(label: str, got, want64, want32=None, float32_rows=None) -> str:
+    """Max |dt| of the card's float32 translations from CPU float64.  Over
+    the gate a row passes only where CPU float32 misses by as much too (PR
+    4's rule: then it is float32's, not the card's); ``float32_rows(rows)``
+    computes the CPU float32 rows on demand when ``want32`` is not given."""
+    import numpy as np
+
+    dev = np.linalg.norm(np.asarray(got, dtype=np.float64) - want64, axis=-1)
+    over = np.flatnonzero(dev > POSE_AGREEMENT_TOL_M)
+    line = (f"CUDA f32 vs CPU f64 max |dt| {dev.max():.4e} m (gate {POSE_AGREEMENT_TOL_M}), "
+            f"{len(over)} of {len(dev)} over it")
+    if want32 is None and len(over):
+        want32 = np.zeros_like(want64)
+        want32[over] = float32_rows(over)
+    if want32 is not None:
+        dev32 = np.linalg.norm(want32[over] - want64[over], axis=-1)
+        if (dev32 <= POSE_AGREEMENT_TOL_M).any():
+            raise AssertionError(f"{label}: {int((dev32 <= POSE_AGREEMENT_TOL_M).sum())} rows "
+                                 f"over the gate from CPU f64 where CPU f32 is within it "
+                                 f"(card max |dt| {dev.max():.4e})")
+        if len(over):
+            line += f", each also over it in CPU f32 (min {dev32.min():.4e}: float32's)"
+    return line
+
+
+def _solve_profile(torch, label: str, solve, iterations: int, times=None) -> str:
+    """ms per GN iteration (the median of 3 timed solves after a warm-up;
+    ``times`` if they were taken already), kernels per GN iteration (a
+    3-iteration solve's count less a 2-iteration one's: the profiler's event
+    lists of whole solves run to 10^5 kernels), and the traced device busy
+    share of a 3-iteration solve."""
+    if times is None:
+        _, times, _ = _timed_runs(lambda: solve(iterations), 3)
+    per_gn = sorted(times)[1] / iterations * 1e3
+    kernels = _kernel_count(torch, lambda: solve(3)) - _kernel_count(torch, lambda: solve(2))
+    trace = _trace(torch, lambda: solve(3)).splitlines()[0]
+    return (f"{label}: {per_gn:.3f} ms per GN iteration (median of 3 solves: "
+            f"{', '.join(f'{x * 1e3:.2f}' for x in times)} ms), {kernels} kernels per GN "
+            f"iteration; a traced 3-iteration solve: {trace}")
+
+
+def _back_end_g2o(torch, np, icp, dev, refs) -> None:
+    """Phase 10a: read_g2o -> optimize(pcg) on the three bundled graphs."""
+    from icp_tpu_torch import pose_graph
+
+    for name, iters, cg, bound in G2O_CELLS:
+        graph = icp.io.read_g2o(os.path.join(REPO, MANHATTAN, f"{name}.g2o"), device=dev)
+
+        def run(iterations=iters):
+            opt, costs = pose_graph.optimize(graph, iterations=iterations, solver="pcg",
+                                             cg_iterations=cg)
+            return opt, costs.double().cpu().numpy()
+
+        # A warm-up and 3 timed solves; the first and the last are compared.
+        runs, times = [run()], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runs.append(run())
+            times.append(time.perf_counter() - t0)
+        (opt, costs), (opt2, _) = runs[0], runs[-1]
+        t = opt.poses.translation.double().cpu().numpy()
+        repeat = float(np.abs(t - opt2.poses.translation.double().cpu().numpy()).max())
+        chi0, chi = costs[0], costs[-1]
+        if not np.isfinite(t).all():
+            raise AssertionError(f"{name}: non-finite poses")
+        drop_ok = chi < G2O_DROP[name] * chi0 and chi < bound * graph.num_edges
+        if name == "sphere2500":
+            r = np.linalg.norm(t, axis=-1)
+            world = f"radii {r.min():.3f}-{r.max():.3f} (24-26)"
+            world_ok = 24.0 < r.min() and r.max() < 26.0
+        else:
+            world = f"max |t| {np.abs(t).max():.3f} ({20 if name == 'm600' else 45})"
+            world_ok = np.abs(t).max() < (20 if name == "m600" else 45)
+        ref64, ref32 = (refs[f"g2o {name} {dtype}"].get() for dtype in ("float64", "float32"))
+        (t64, c64), (t32, c32) = ((r["translation"], r["costs"]) for r in (ref64, ref32))
+        gates = (f"chi2 {chi0:.6g} -> {chi:.6g} (bounds < {G2O_DROP[name]:g} x start, < "
+                 f"{bound} x {graph.num_edges}; CPU f64 {c64[-1]:.6g}, CPU f32 {c32[-1]:.6g}), "
+                 f"{world}")
+        if not (drop_ok and world_ok):
+            if c32[-1] < G2O_DROP[name] * c32[0] and c32[-1] < bound * graph.num_edges:
+                raise AssertionError(f"{name}: a gate missed where CPU f32 meets it: {gates}")
+            gates += "; MISSED, and CPU f32 misses too (float32's)"
+        _say("back-g2o", f"{name} ({graph.num_nodes} nodes, {graph.num_edges} edges), pcg "
+                         f"{iters} x {cg}: {gates}; {_float32_gate(name, t, t64, t32)}; the first "
+                         f"and the last card run differ by max |dt| {repeat:.3e} m (index_add_ "
+                         "order)")
+        _say("back-g2o", _solve_profile(torch, name, run, iters, times))
+    torch.cuda.empty_cache()
+
+
+def _synthetic_graph(torch, np, icp, dev):
+    """bench.py::run_pose_graph's graph on the card, float32: seed 7, 10,000
+    nodes integrating noisy odometry, 20,000 closures of span 2-49 measuring
+    the ground truth, loop weight 10."""
+    from icp_tpu_torch import geometry, lie, odometry, pose_graph
+
+    rng = np.random.default_rng(7)
+    twists = rng.uniform(-0.2, 0.2, (SYNTH_NODES - 1, 3))
+    noisy = torch.tensor(twists + rng.normal(0, 0.01, twists.shape), dtype=torch.float32,
+                         device=dev)
+    rel = lie.se2_exp(noisy)
+    ident = icp.identity(2, dtype=torch.float32, device=dev)
+    poses0 = odometry.compose_chain(geometry.inverse(rel), ident)
+    gt = odometry.compose_chain(geometry.inverse(lie.se2_exp(
+        torch.tensor(twists, dtype=torch.float32, device=dev))), ident)
+    li = rng.integers(0, SYNTH_NODES - 2, SYNTH_LOOPS)
+    lj = np.minimum(li + rng.integers(2, 50, SYNTH_LOOPS), SYNTH_NODES - 1)
+    ti, tj = torch.tensor(li, device=dev), torch.tensor(lj, device=dev)
+    loop_meas = icp.RigidTransform(
+        gt.rotation[ti].transpose(-1, -2) @ gt.rotation[tj],
+        torch.einsum("eji,ej->ei", gt.rotation[ti], gt.translation[tj] - gt.translation[ti]))
+    return pose_graph.graph_from_trajectory(
+        poses0, rel, loop_edges=torch.tensor(np.stack([li, lj], -1), dtype=torch.int32,
+                                             device=dev),
+        loop_measurements=loop_meas, loop_weight=10.0)
+
+
+def _back_end_synthetic(torch, np, icp, dev) -> None:
+    """Phase 10b: the 10k-node / 30k-edge synthetic SE(2) graph, 5 GN x 50 PCG."""
+    from icp_tpu_torch import pose_graph
+
+    graph = _synthetic_graph(torch, np, icp, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(iterations=SYNTH_GN):
+        opt, costs = pose_graph.optimize(graph, iterations=iterations, solver="pcg",
+                                         cg_iterations=SYNTH_CG)
+        return opt, costs.double().cpu().numpy()
+
+    opt, costs = run()
+    if not (np.isfinite(costs).all() and costs[-1] < costs[0]):
+        raise AssertionError(f"synthetic 10k graph: costs {costs}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    _say("back-synthetic", f"{graph.num_nodes} nodes, {graph.num_edges} edges, pcg {SYNTH_GN} x "
+                           f"{SYNTH_CG}: cost {costs[0]:.6g} -> {costs[-1]:.6g} (drop "
+                           f"{costs[0] / max(costs[-1], 1e-30):.2f}x), peak device memory "
+                           f"{peak:.1f} MiB")
+    _say("back-synthetic", _solve_profile(torch, "10k / 30k", run, SYNTH_GN))
+    del graph, opt
+    torch.cuda.empty_cache()
+
+
+def _back_end_robust(torch, np, icp, dev) -> None:
+    """Phase 10c: robust solves on m600."""
+    from icp_tpu_torch import pose_graph, robustness
+
+    graph = icp.io.read_g2o(os.path.join(REPO, MANHATTAN, "m600.g2o"), device=dev)
+    mask = robustness.closure_mask(graph, 2)
+    t0 = time.perf_counter()
+    scale = pose_graph.auto_robust_scale(graph, iterations=30, solver="pcg", robust_edges=mask)
+    opt, costs = pose_graph.optimize(graph, iterations=30, solver="pcg", robust="gnc_gm",
+                                     robust_scale=scale, robust_edges=mask)
+    chi = costs.double().cpu().numpy()
+    gnc_s = time.perf_counter() - t0
+    if not (1.5 < float(scale) < 2.1 and chi[-1] < 2e3 and np.isfinite(chi).all()):
+        raise AssertionError(f"m600 gnc_gm: scale {float(scale)}, chi2 {chi[0]} -> {chi[-1]}")
+    _say("back-robust", f"m600 gnc_gm pcg, auto scale on the loop-like edges: scale "
+                        f"{float(scale):.4f} (verify recipe ~1.79), chi2 {chi[0]:.6g} -> "
+                        f"{chi[-1]:.6g} (~1.3e3), {gnc_s * 1e3:.1f} ms with the L2 pre-solve")
+    t0 = time.perf_counter()
+    two, _, s2, w2 = pose_graph.robust_solve(graph, kernel="welsch", robust_edges=mask,
+                                             solver="pcg")
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused, _, sf, wf = pose_graph.robust_solve_fused(graph, mask, kernel="welsch", solver="pcg")
+    float(sf)
+    fused_s = time.perf_counter() - t0
+    dt = float(torch.linalg.vector_norm(two.poses.translation - fused.poses.translation,
+                                        dim=-1).max())
+    dw = float((w2 - wf).abs().max())
+    if not (abs(float(sf) - s2) <= 1e-4 * s2 and dt <= POSE_AGREEMENT_TOL_M):
+        raise AssertionError(f"m600 fused vs host two-pass: scale {float(sf)} vs {s2}, |dt| {dt}")
+    _say("back-robust", f"m600 two-pass welsch: robust_solve scale {s2:.6g}, {two_s * 1e3:.1f} ms; "
+                        f"robust_solve_fused scale {float(sf):.6g}, {fused_s * 1e3:.1f} ms; fused "
+                        f"vs host max |dt| {dt:.3e} m, max |dw| {dw:.3e}")
+    t0 = time.perf_counter()
+    rec = robustness.run_protocol(graph, **PROTOCOL_CELL)[0]
+    if not (rec["recall"] == 1.0 and rec["inliers_kept"] == 1.0):
+        raise AssertionError(f"m600 protocol cell: {rec}")
+    _say("back-robust", f"m600 protocol cell (random, rate 0.2, welsch, 2 passes, seed 3): "
+                        f"recall {rec['recall']}, inliers kept {rec['inliers_kept']}, precision "
+                        f"{rec['precision']:.4f}, {rec['n_injected']} injected, scale "
+                        f"{rec['scale']:.4f}, ATE vs the clean oracle {rec['ate_vs_oracle']:.4e} m, "
+                        f"{(time.perf_counter() - t0):.2f} s")
+    torch.cuda.empty_cache()
+
+
+def _back_end_seq2loop(torch, np, icp, dev, pool):
+    """Phase 10d: offline loop closure over seq2loop, the kernel path.  A
+    generator: its first step runs the card's part and yields the launches
+    of its paths, K1/K2's deviation from their plain version on the closure
+    batch and that case's label; its second holds the card against the CPU
+    runs that the first queued."""
+    from icp_tpu_torch import convert, geometry, odometry, pose_graph
+    from icp_tpu_torch import eval as ev
+    from icp_tpu_torch.ops import fused_nn, nn, pallas_nn
+
+    sweeps, gt, paths_conf = _seq2loop(np)
+    truth = _gt_transform(icp, torch, np, gt)
+    method, cfg = icp.from_method("trimmed", 2), icp.DriverConfig(**CHAIN_CFG)
+    paths, stage_ms = {}, {}
+
+    def stage(name, fn):
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage_ms[name] = (time.perf_counter() - t0) * 1e3
+        paths[f"seq2loop {name}"] = _read_launches()
+        return out
+
+    scans = stage("parse", lambda: icp.stack([icp.io.parse_sweep(
+        path, capacity=CAPACITY, dtype=torch.float32, device=dev) for path in paths_conf]))
+    traj = stage("chain", lambda: odometry.chain_scans(scans, method, cfg))
+    cands = stage("candidates", lambda: pose_graph.find_loop_candidates(
+        traj.poses, LOOP_RADIUS, LOOP_MIN_SEP))
+    edges, meas, costs = stage("closure batch", lambda: pose_graph.register_loop_closures(
+        scans, traj.poses, cands, method, cfg))
+    # The CPU runs, in the worker pool while the card goes on: every 8th
+    # closure from the card's own seeds (split over the workers), and below
+    # the card's own graph; float64, and float32 where a row misses the gate.
+    rot64, trans64 = (x.double().cpu().numpy() for x in (traj.poses.rotation,
+                                                          traj.poses.translation))
+    sub = cands[::CLOSURE_CPU_STRIDE].cpu().numpy()
+
+    def closures_cpu(rows, dtype, parts):
+        return [pool.apply_async(_phase10_reference, ("seq2loop_closures", (
+            rot64, trans64, sub[rows][k::parts], dtype))) for k in range(parts)]
+
+    closures64 = closures_cpu(np.arange(len(sub)), "float64", REFERENCE_WORKERS)
+    n_loop = len(edges)
+    graph = stage("graph", lambda: pose_graph.graph_from_trajectory(
+        traj.poses, geometry.inverse(traj.relative), loop_edges=edges, loop_measurements=meas,
+        loop_weight=LOOP_WEIGHT))
+    fields = convert.pose_graph_to_numpy(graph)
+    graph64 = pool.apply_async(_phase10_reference, ("seq2loop_graph", (fields, n_loop,
+                                                                       "float64")))
+    mask = torch.arange(graph.num_edges, device=dev) >= graph.num_edges - n_loop
+    opt, _, scale, w = stage("robust solve", lambda: pose_graph.robust_solve(
+        graph, kernel="welsch", robust_edges=mask, scale_passes=2))
+    for name in ("chain", "closure batch"):
+        if min(paths[f"seq2loop {name}"].values()) <= 0:
+            raise AssertionError(f"seq2loop {name} did not launch K1 and K2: {paths}")
+    kept = int((w[-n_loop:] >= 0.5).sum())
+    lines = []
+    for label, poses in (("odometry chain", traj.poses), ("after the solve", opt.poses)):
+        ate, rpe = ev.ate(poses, truth), ev.rpe(poses, truth)
+        lines.append(f"{label}: ATE rmse {ate.rmse:.4e} m, RPE trans rmse {rpe.trans_rmse:.4e} m "
+                     f"rot rmse {math.degrees(rpe.rot_rmse_rad):.4e} deg")
+    iters = traj.registration.iteration_count
+    _say("back-seq2loop", f"{len(sweeps)} sweeps at capacity {CAPACITY}, trimmed to 1e-6; "
+                          f"chain iterations mean {float(iters.float().mean()):.2f} max "
+                          f"{int(iters.max())}; {len(cands)} candidates (radius {LOOP_RADIUS}, "
+                          f"separation >= {LOOP_MIN_SEP}), {n_loop} registered in one batch "
+                          f"(costs median {float(costs.median()):.4g}, max "
+                          f"{float(costs.max()):.4g}), {kept} kept by the two-pass welsch "
+                          f"solve (weight >= 0.5; scale {scale:.4g}); " + "; ".join(lines))
+    _say("back-seq2loop", "stages: " + ", ".join(
+        f"{name} {ms:.1f} ms {paths[f'seq2loop {name}']}" for name, ms in stage_ms.items())
+        + "; launches are counted over each stage")
+    # The closure batch's first iterate through the kernel and its plain version.
+    i, j = edges[:, 0].long(), edges[:, 1].long()
+    seed = geometry.compose(geometry.inverse(pose_graph._gather(traj.poses, i)),
+                            pose_graph._gather(traj.poses, j))
+    q = geometry.apply(seed, scans.points[j]).contiguous()
+    t, m = scans.points[i].contiguous(), scans.mask[i].contiguous()
+    err = _compare(torch, fused_nn.fused_nearest_neighbors(q, t, m, return_coords=True),
+                   fused_nn.plain_fused_nearest_neighbors(q, t, m, return_coords=True),
+                   "K1 seq2loop closure batch")
+    err = max(err, _compare(torch, pallas_nn.nearest_neighbors_pallas(q, t, m),
+                            nn.nearest_neighbors(q, t, m), "K2 seq2loop closure batch"))
+    label = f"seq2loop closure batch as run ({tuple(q.shape[:2]) + tuple(t.shape[1:])}) f32"
+    _say("kernel", f"{label}: K1 and K2 exact (idx, coords, sq bits)")
+    del q, t, m, scans, traj, graph
+    torch.cuda.empty_cache()
+    # The CPU runs end while the card runs phases 10a-c; the check follows.
+    yield ({k: v for k, v in paths.items() if k.endswith(("chain", "closure batch", "solve"))},
+           err, label)
+
+    def interleave(parts):
+        """Rows of the CPU runs split k::n over the workers, back in order."""
+        rows = [p.get() for p in parts]
+        out = np.zeros((sum(len(r["translation"]) for r in rows), 2))
+        for k, r in enumerate(rows):
+            out[k::len(rows)] = r["translation"]
+        return out, max(r["seconds"] for r in rows)
+
+    want64, c_s = interleave(closures64)
+    card_sub = meas.translation[::CLOSURE_CPU_STRIDE].double().cpu().numpy()
+    c_line = _float32_gate("seq2loop closures", card_sub, want64, float32_rows=lambda rows: (
+        interleave(closures_cpu(rows, "float32", 1))[0]))
+    g64 = graph64.get()
+    g_line = _float32_gate(
+        "seq2loop graph solve", opt.poses.translation.double().cpu().numpy(), g64["translation"],
+        float32_rows=lambda rows: pool.apply_async(_phase10_reference, ("seq2loop_graph", (
+            fields, n_loop, "float32"))).get()["translation"][rows])
+    _say("back-seq2loop", f"every {CLOSURE_CPU_STRIDE}th closure ({len(card_sub)}) from the card's "
+                          f"seeds against the CPU ({c_s:.1f} s): {c_line}; the card's graph "
+                          f"solved on the CPU (scale f64 {g64['scale']:.6g} vs the card's "
+                          f"{scale:.6g}, {g64['seconds']:.1f} s): {g_line}")
+    del opt
+
+
+def _phase_back_end(torch, np, icp, dev, refs, pool) -> tuple[dict, float, str]:
+    """Phase 10: the pose-graph back end; returns the launches of each path,
+    K1/K2's deviation on the closure batch and that case's label.  10d's
+    card part runs first, so that its CPU runs overlap 10a-c."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    seq2loop = _back_end_seq2loop(torch, np, icp, dev, pool)
+    paths, err, label = next(seq2loop)
+    done("d (card)")
+    _back_end_g2o(torch, np, icp, dev, refs)
+    done("a")
+    _back_end_synthetic(torch, np, icp, dev)
+    done("b")
+    _back_end_robust(torch, np, icp, dev)
+    done("c")
+    next(seq2loop, None)
+    done("d (CPU check)")
+    _say("back-seconds", ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return paths, err, label
+
 def main() -> int:
     import multiprocessing
 
@@ -1555,13 +2005,17 @@ def main() -> int:
                                                       initargs=(19,))
     try:
         refs = {task: pool.apply_async(_phase9_reference, (task,)) for task in REFERENCE_TASKS}
-        return _phases(refs)
+        for name, *_ in G2O_CELLS:
+            for dtype in ("float64", "float32"):
+                refs[f"g2o {name} {dtype}"] = pool.apply_async(
+                    _phase10_reference, ("g2o", (name, dtype)))
+        return _phases(refs, pool)
     finally:
         pool.terminate()
         pool.join()
 
 
-def _phases(refs) -> int:
+def _phases(refs, pool) -> int:
     import numpy as np
     import torch
 
@@ -1722,6 +2176,12 @@ def _phases(refs) -> int:
     phase_done("8 families")
     paths.update(_phase_front_end(torch, np, icp, dev, refs))
     phase_done("9 front end")
+    back_paths, closure_err, closure_label = _phase_back_end(torch, np, icp, dev, refs, pool)
+    paths.update(back_paths)
+    for k in errs:
+        errs[k] = max(errs[k], closure_err)
+    exact_cases.append(closure_label)
+    phase_done("10 back end")
     _say("seconds", ", ".join(f"phase {k} {v}" for k, v in phase_s.items()))
 
     def entry(k, name, replaces):

@@ -9,8 +9,12 @@ schedule), the global initializers (``ops.coarse``) and outlier filter
 (``ops.filters``), the odometry front end (``odometry``: batched chains and
 keyframe streams; ``mapping``: scan-to-map against a voxel map), trajectory
 evaluation (``eval``, TUM files in ``io``), a micro-batching registration
-server (``serve.BatchingRegistrar``), the scan/sweep/PLY readers and a CLI
-(``python -m icp_tpu_torch.cli``: ``register``, ``odometry``).  The exact masked 1-NN
+server (``serve.BatchingRegistrar``), the pose-graph back end
+(``pose_graph``: GN/LM with dense, CG and block-Jacobi PCG solves, robust
+kernels and GNC, two-pass robust solves, loop candidates and closure
+registration; ``robustness``: the outlier-injection protocol; g2o files in
+``io``), the scan/sweep/PLY readers and a CLI (``python -m
+icp_tpu_torch.cli``: ``register``, ``odometry``, ``graph``).  The exact masked 1-NN
 correspondence is a CUDA kernel for Hopper (``csrc/nn.cu``, built with
 ``nvcc`` at first use).  The JAX package is the reference each module is
 tested against.  The entry points put their tensors on the card unless the
@@ -50,6 +54,8 @@ from . import (
     multiscale,
     odometry,
     ops,
+    pose_graph,
+    robustness,
     serve,
     utils,
 )
@@ -111,10 +117,12 @@ __all__ = [
     "odometry",
     "ops",
     "pad_to",
+    "pose_graph",
     "parse_lidar_scan",
     "read_ply",
     "register_method",
     "registered_methods",
+    "robustness",
     "serve",
     "stack",
     "to_numpy",

@@ -11,17 +11,25 @@ Port of the ``register``, ``odometry`` and ``methods`` subcommands of
 * ``odometry`` — a scan sequence into a trajectory: every consecutive pair
   in one batch (``--coarse``, ``--multiscale``), or ``--scan-to-map``
   against an aggregated voxel map (``--device-map`` keeps it on the card);
+  with ``--optimize`` / ``--loop-radius`` the offline back end: loop
+  candidates within the radius, registered in one batch, then a pose-graph
+  solve (``--robust-kernel``, ``--scale-passes``, ``--closure-information``);
   one JSON record per scan, and with ``--eval GT_TUM`` one more with the
   ATE and RPE against a TUM ground truth.
+* ``graph`` — optimize a g2o pose graph (robust kernels, dense / CG / PCG),
+  or run the outlier-injection protocol on it (``--outlier-protocol``).
 * ``methods`` — list the registry (the reference prints it on an unknown
   method, ``vis/main.cpp:133-139``).
 
 Inputs load in float32 with power-of-two bucket capacity
-(``--exact-capacity``: a multiple of 8), as in the JAX CLI.  ``--platform
-gpu`` (the default) runs on the CUDA card and fails without one;
-``--platform cpu`` runs on the CPU.  The JAX CLI's ``--aot-cache`` is not
-ported; its SLAM flags (``--optimize``, ``--loop-*``, ``--online``, ...) are
-not registered, so they are refused.
+(``--exact-capacity``: a multiple of 8), as in the JAX CLI; g2o graphs in
+float32 on the card, float64 with ``--platform cpu``.  ``--platform gpu``
+(the default) runs on the CUDA card and fails without one; ``--platform
+cpu`` runs on the CPU.  Not ported, so refused: the JAX CLI's
+``--aot-cache``, ``--loop-descriptor`` / ``--descriptor-max-distance``, the
+online SLAM flags (``--online``, ``--pipelined``, ``--async-refine``,
+``--loop-every``, ``--keyframe-*``, ``--odometry-weight``), ``--render`` and
+``--save``.
 """
 
 from __future__ import annotations
@@ -228,10 +236,10 @@ def _scan_to_map(args, device, dim) -> None:
         print(f"hint: method '{args.method}' is a hard-overlap method; the aggregated map "
               "always contains unobserved regions, which 'robust' down-weights (in long "
               "corridors robust can stall: see icp_tpu_torch.mapping)", file=sys.stderr)
-    for flag in ("coarse", "multiscale"):
+    for flag in ("optimize", "loop_radius", "coarse", "multiscale"):
         if getattr(args, flag):
-            print(f"warning: --{flag} is not supported with --scan-to-map and is ignored",
-                  file=sys.stderr)
+            print(f"warning: --{flag.replace('_', '-')} is not supported with --scan-to-map "
+                  "and is ignored", file=sys.stderr)
     clouds = _odometry_clouds(args, device)
     method = _make_method(args.method, dim, _parse_config(args.config))
     poses = []
@@ -266,9 +274,12 @@ def cmd_odometry(args):
         scans = parse_lidar_scan_batch(args.scans, dtype=torch.float32, device=device)
         scans = pad_to(scans, _cli_capacity(scans.capacity, args))
     method = _make_method(args.method, dim, _parse_config(args.config))
-    traj = odometry.chain_scans(scans, method, _driver_config(args), coarse=args.coarse,
+    cfg = _driver_config(args)
+    traj = odometry.chain_scans(scans, method, cfg, coarse=args.coarse,
                                 multiscale=args.multiscale)
     poses = traj.poses
+    if args.optimize or args.loop_radius:
+        poses = _back_end(args, scans, traj, method, cfg)
     for t, path in enumerate(args.scans):
         rec = _pose_record(path, poses.rotation[t], poses.translation[t])
         if t > 0:
@@ -277,6 +288,140 @@ def cmd_odometry(args):
         print(json.dumps(rec))
     if args.eval:
         _eval_against_tum(poses, args.eval, dim)
+
+
+def _back_end(args, scans, traj, method, cfg):
+    """The offline back end of ``odometry``: loop candidates within
+    ``--loop-radius``, registered in one batch, then the pose-graph solve;
+    returns the optimized poses.  Stderr lines as in the JAX CLI."""
+    from . import geometry, pose_graph
+    from .cloud import PointCloud
+
+    loop_edges = loop_meas = None
+    if args.loop_radius:
+        cands = pose_graph.find_loop_candidates(traj.poses, radius=args.loop_radius,
+                                                min_separation=args.loop_min_separation)
+        if len(cands):
+            loop_edges, loop_meas, lc_costs = pose_graph.register_loop_closures(
+                scans, traj.poses, cands, method, cfg, max_cost=args.loop_max_cost,
+                coarse=args.loop_coarse)
+            print(f"loop closures: {len(loop_edges)} of {len(cands)} candidates accepted "
+                  f"(costs {np.round(lc_costs.cpu().numpy(), 4).tolist()})", file=sys.stderr)
+    loop_info = None
+    if args.closure_information and loop_edges is not None:
+        from .ops.covariance import cloud_information
+
+        tgt = loop_edges[:, 0].long()
+        loop_info = cloud_information(PointCloud(scans.points[tgt], scans.count[tgt]))
+    # Edge measurements are frame-t-relative poses of frame t + 1: the
+    # inverse of the registration transform (see odometry.compose_chain).
+    graph = pose_graph.graph_from_trajectory(
+        traj.poses, geometry.inverse(traj.relative), loop_edges=loop_edges,
+        loop_measurements=loop_meas, loop_weight=args.loop_weight,
+        loop_information=loop_info)
+    # Robust kernels act on the loop-closure edges only (a redescending
+    # kernel on odometry edges can disconnect the chain).
+    robust_mask = None
+    robust_scale = args.robust_scale
+    gn_iterations = args.gn_iterations
+    if gn_iterations is None:
+        gn_iterations = 10 if args.robust_kernel == "none" else 30
+    n_loop = 0 if loop_edges is None else len(loop_edges)
+    two_pass = (args.robust_kernel != "none" and n_loop > 0 and args.scale_passes != 1
+                and (args.scale_passes != "auto" or n_loop >= args.mapping_threshold))
+    if args.robust_kernel != "none" and loop_edges is not None:
+        robust_mask = (torch.arange(graph.num_edges, device=graph.weights.device)
+                       >= graph.num_edges - n_loop)
+        if not two_pass and isinstance(robust_scale, str):  # 'auto'
+            robust_scale = pose_graph.auto_robust_scale(graph, iterations=gn_iterations,
+                                                        robust_edges=robust_mask)
+            print(f"robust scale (auto): {float(robust_scale):.4g}", file=sys.stderr)
+    if two_pass:
+        # Mapping scale: the two-pass welsch recipe (robust_solve).
+        passes = 2 if args.scale_passes == "auto" else int(args.scale_passes)
+        graph, costs, robust_scale, w = pose_graph.robust_solve(
+            graph, robust_edges=robust_mask, iterations=gn_iterations,
+            robust_scale=robust_scale, scale_passes=passes)
+        print(f"robust scale (two-pass welsch, {n_loop} closures): {float(robust_scale):.4g}",
+              file=sys.stderr)
+    else:
+        graph, costs = pose_graph.optimize(graph, iterations=gn_iterations,
+                                           robust=args.robust_kernel,
+                                           robust_scale=robust_scale, robust_edges=robust_mask)
+    print(f"pose-graph cost: {float(costs[0]):.6g} -> {float(costs[-1]):.6g}", file=sys.stderr)
+    if args.robust_kernel != "none" and loop_edges is not None:
+        if not two_pass:
+            w, _ = pose_graph.robust_edge_weights(graph, args.robust_kernel, robust_scale,
+                                                  robust_edges=robust_mask)
+        loop_w = w.cpu().numpy()[-n_loop:]
+        print(f"loop-closure robust weights: {np.round(loop_w, 4).tolist()}", file=sys.stderr)
+    return graph.poses
+
+
+def cmd_graph(args):
+    """Optimize a g2o pose graph (the analogue of the ``g2o`` binary): load,
+    robust-solve on the device, report chi², write back."""
+    from . import pose_graph
+    from .io import read_g2o, write_g2o, write_tum
+
+    device = _device(args.platform)
+    graph = read_g2o(args.input, device=device)
+    print(f"loaded {graph.num_nodes} vertices, {graph.num_edges} edges "
+          f"({'matrix' if graph.sqrt_information is not None else 'scalar'} information)",
+          file=sys.stderr)
+    if args.outlier_protocol:
+        # The Vertigo-style evaluation (robustness.run_protocol): one JSON
+        # record per (mode, rate, kernel).
+        from . import robustness
+
+        recs = robustness.run_protocol(
+            graph, rates=tuple(float(r) for r in args.outlier_rates.split(",")),
+            modes=tuple(args.outlier_modes.split(",")),
+            kernels=tuple(args.protocol_kernels.split(",")), iterations=args.iterations,
+            solver=args.solver, cg_iterations=args.cg_iterations, seed=args.protocol_seed,
+            scale_passes=args.scale_passes)
+        for rec in recs:
+            print(json.dumps(rec))
+        return
+    robust_mask = None
+    robust_scale = args.robust_scale
+    if args.robust_kernel != "none" and args.robust_min_separation > 0:
+        span = graph.edges_ij[:, 1] - graph.edges_ij[:, 0]
+        robust_mask = (span < 0) | (span.abs() >= args.robust_min_separation)
+    if args.robust_kernel != "none" and args.scale_passes > 1:
+        opt, costs, scale, _ = pose_graph.robust_solve(
+            graph, kernel=args.robust_kernel, robust_edges=robust_mask,
+            iterations=args.iterations, solver=args.solver, cg_iterations=args.cg_iterations,
+            robust_scale=args.robust_scale, scale_passes=args.scale_passes)
+        print(f"robust scale (pass {args.scale_passes}): {scale:.4g}", file=sys.stderr)
+        # robust_solve's cost trace belongs to its last pass; report the
+        # true chi² at the input poses so chi2_initial keeps its meaning.
+        r0 = pose_graph.edge_residuals(graph, graph.poses)
+        costs = torch.cat([(r0 * r0).sum()[None], costs[1:]])
+    else:
+        if robust_mask is not None and isinstance(robust_scale, str):  # 'auto'
+            robust_scale = pose_graph.auto_robust_scale(
+                graph, iterations=args.iterations, solver=args.solver,
+                robust_edges=robust_mask)
+            print(f"robust scale (auto): {float(robust_scale):.4g}", file=sys.stderr)
+        opt, costs = pose_graph.optimize(
+            graph, iterations=args.iterations, solver=args.solver,
+            cg_iterations=args.cg_iterations, robust=args.robust_kernel,
+            robust_scale=robust_scale, robust_edges=robust_mask)
+    print(f"chi2: {float(costs[0]):.6g} -> {float(costs[-1]):.6g} "
+          f"({args.iterations} GN iterations, solver {args.solver})", file=sys.stderr)
+    if args.output:
+        write_g2o(args.output, opt)
+        print(f"wrote {args.output}", file=sys.stderr)
+    if args.tum:
+        write_tum(args.tum, opt.poses)
+        print(f"wrote {args.tum}", file=sys.stderr)
+    print(json.dumps({
+        "vertices": graph.num_nodes,
+        "edges": graph.num_edges,
+        "chi2_initial": float(costs[0]),
+        "chi2_final": float(costs[-1]),
+    }))
 
 
 def cmd_methods(args):
@@ -361,8 +506,85 @@ def main(argv=None):
         help="evaluate the trajectory against a TUM ground-truth file (one line per "
         "scan): one more JSON record with the Umeyama-aligned ATE and delta-1 RPE",
     )
+    p_odo.add_argument("--optimize", action="store_true", help="pose-graph refine")
+    p_odo.add_argument(
+        "--gn-iterations", type=int, default=None,
+        help="Gauss-Newton iterations for --optimize (default 10; 30 when --robust-kernel "
+        "is set: the GNC anneal needs the budget)",
+    )
+    p_odo.add_argument("--loop-radius", type=float, default=0.0,
+                       help="detect and register loop closures within this pose radius")
+    p_odo.add_argument("--loop-min-separation", type=int, default=10)
+    p_odo.add_argument("--loop-weight", type=float, default=10.0)
+    p_odo.add_argument(
+        "--loop-max-cost", type=float, default=None,
+        help="reject loop closures whose registration cost exceeds this (one bad closure "
+        "can corrupt the optimized trajectory)",
+    )
+    p_odo.add_argument(
+        "--loop-coarse", action="store_true",
+        help="seed closure registrations with the global initializer (large drift)",
+    )
+    p_odo.add_argument(
+        "--robust-kernel", default="none",
+        choices=["none", "huber", "cauchy", "welsch", "gnc_gm"],
+        help="robust loss on the loop-closure edges: down-weights wrong closures by their "
+        "graph inconsistency; gnc_gm = graduated non-convexity",
+    )
+    p_odo.add_argument(
+        "--closure-information", action="store_true",
+        help="anisotropic closure edges: per-closure information from the target scan's "
+        "surface geometry (Censi form)",
+    )
+    p_odo.add_argument(
+        "--robust-scale", default="auto", type=lambda s: s if s == "auto" else float(s),
+        help="inlier threshold for --robust-kernel in plain residual units "
+        "(meters+radians); 'auto' derives it from an L2 pre-solve",
+    )
+    p_odo.add_argument(
+        "--scale-passes", default="auto", type=lambda s: s if s == "auto" else int(s),
+        help="robust-scale re-estimation passes: 'auto' switches to the two-pass welsch "
+        "solve (pose_graph.robust_solve) at --mapping-threshold closures; 1 forces one pass",
+    )
+    p_odo.add_argument(
+        "--mapping-threshold", type=int, default=12,
+        help="accepted-closure count at which --scale-passes 'auto' switches to two passes",
+    )
     _add_driver_flags(p_odo)
     p_odo.set_defaults(fn=cmd_odometry)
+
+    p_g = sub.add_parser("graph", help="optimize a g2o pose graph (robust kernels, PCG)")
+    p_g.add_argument("input", help="input .g2o file (SE2 or SE3:QUAT)")
+    p_g.add_argument("-o", "--output", help="write the optimized graph (.g2o)")
+    p_g.add_argument("--tum", help="also write the optimized trajectory (TUM)")
+    p_g.add_argument("--iterations", type=int, default=30)
+    p_g.add_argument("--solver", default="auto", choices=["auto", "dense", "cg", "pcg"])
+    p_g.add_argument("--cg-iterations", type=int, default=50)
+    p_g.add_argument("--robust-kernel", default="none",
+                     choices=["none", "huber", "cauchy", "welsch", "gnc_gm"])
+    p_g.add_argument("--robust-scale", default="auto",
+                     type=lambda s: s if s == "auto" else float(s))
+    p_g.add_argument(
+        "--robust-min-separation", type=int, default=2,
+        help="edges spanning fewer than this many ids stay quadratic (odometry-like); the "
+        "kernel acts on the rest (loop-like)",
+    )
+    p_g.add_argument(
+        "--scale-passes", type=int, default=1,
+        help="robust-scale re-estimation passes (pose_graph.robust_solve); 2 = one bounded "
+        "re-estimate at the robust solution, the multi-outlier recipe",
+    )
+    p_g.add_argument(
+        "--outlier-protocol", action="store_true",
+        help="run the outlier-injection evaluation on this graph instead of solving it: "
+        "per (mode, rate, kernel) closure precision/recall and ATE vs the clean oracle, "
+        "one JSON line each",
+    )
+    p_g.add_argument("--outlier-rates", default="0.1,0.2,0.3")
+    p_g.add_argument("--outlier-modes", default="random,clustered")
+    p_g.add_argument("--protocol-kernels", default="none,cauchy,welsch,gnc_gm")
+    p_g.add_argument("--protocol-seed", type=int, default=0)
+    p_g.set_defaults(fn=cmd_graph)
 
     p_m = sub.add_parser("methods", help="list registered methods")
     p_m.set_defaults(fn=cmd_methods)

@@ -12,6 +12,8 @@ as the tests that compare with the JAX package do:
   ``(..., N, D)``, surfel covariances ``(..., N, D, D)``, and an ``NdtMap``'s
   fields (``jax_map._asdict()`` of the JAX package's map), so that
   ``with_precomputed`` can be fed from one source on both sides
+* a ``PoseGraph``'s fields (``dataclasses.asdict`` of the JAX package's
+  graph): poses, ``edges_ij``, measurements, weights, ``sqrt_information``
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .cloud import PointCloud
 from .driver import DriverConfig
 from .geometry import RigidTransform, default_dtype
 from .ops.ndt import NdtMap
+from .pose_graph import PoseGraph
 
 
 def _tensor(array, dtype, device) -> torch.Tensor:
@@ -95,3 +98,43 @@ def ndt_map_from_numpy(fields: Mapping[str, Any], *, dtype=None, device="cuda") 
                if name in exact else _tensor(fields[name], dtype, device)).contiguous()
         for name in NdtMap._fields
     })
+
+
+def pose_graph_from_numpy(fields: Mapping[str, Any], *, dtype=None, device="cuda") -> PoseGraph:
+    """A :class:`~icp_tpu_torch.pose_graph.PoseGraph` from a mapping of its
+    field names: ``poses`` and ``measurements`` as mappings of ``rotation``
+    and ``translation``, ``edges_ij`` as int32, ``weights`` and the optional
+    ``sqrt_information`` in ``dtype``.  ``dataclasses.asdict`` of the JAX
+    package's graph is such a mapping, and so is :func:`pose_graph_to_numpy`'s
+    result."""
+    sqrt_info = fields.get("sqrt_information")
+    poses, meas = fields["poses"], fields["measurements"]
+    return PoseGraph(
+        poses=transform_from_numpy(poses["rotation"], poses["translation"], dtype=dtype,
+                                   device=device),
+        edges_ij=torch.tensor(np.asarray(fields["edges_ij"]), dtype=torch.int32,
+                              device=device).reshape(-1, 2),
+        measurements=transform_from_numpy(meas["rotation"], meas["translation"], dtype=dtype,
+                                          device=device),
+        weights=_tensor(fields["weights"], dtype, device),
+        sqrt_information=None if sqrt_info is None else _tensor(sqrt_info, dtype,
+                                                                device).contiguous(),
+    )
+
+
+def pose_graph_to_numpy(graph: PoseGraph) -> dict[str, Any]:
+    """The fields of a pose graph as numpy arrays, shaped like
+    ``dataclasses.asdict`` of the JAX package's graph."""
+
+    def transform(t):
+        rotation, translation = transform_to_numpy(t)
+        return {"rotation": rotation, "translation": translation}
+
+    return {
+        "poses": transform(graph.poses),
+        "edges_ij": graph.edges_ij.cpu().numpy(),
+        "measurements": transform(graph.measurements),
+        "weights": graph.weights.cpu().numpy(),
+        "sqrt_information": (None if graph.sqrt_information is None
+                             else graph.sqrt_information.cpu().numpy()),
+    }

@@ -83,6 +83,27 @@ def inverse(transform: RigidTransform) -> RigidTransform:
     return RigidTransform(rot_t.contiguous(), trans)
 
 
+def project_rotation(rotation: torch.Tensor) -> torch.Tensor:
+    """Nearest SO(D) matrix in Frobenius norm (batched SVD polar factor).
+
+    Long compose chains drift off the rotation manifold, in float32 as a
+    multiplicative scale loss that :func:`inverse` (a transpose) never
+    cancels.  The det-sign convention of the rigid fit keeps the result a
+    proper rotation: when ``det(U Vᵀ) < 0`` the last column of ``U`` flips.
+    """
+    u, _, vt = torch.linalg.svd(rotation)
+    det = torch.linalg.det(torch.matmul(u, vt))
+    sign = torch.where(det < 0, -1.0, 1.0).to(u.dtype)
+    u = torch.cat([u[..., :, :-1], u[..., :, -1:] * sign[..., None, None]], dim=-1)
+    return torch.matmul(u, vt)
+
+
+def renormalize(transform: RigidTransform) -> RigidTransform:
+    """Re-project a transform's rotation onto SO(D) (:func:`project_rotation`);
+    the translation passes through."""
+    return RigidTransform(project_rotation(transform.rotation), transform.translation)
+
+
 def from_angle_2d(angle, translation=None, *, device="cuda") -> RigidTransform:
     """SE(2) transform from an angle (radians) and an optional translation.
 

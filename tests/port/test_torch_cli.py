@@ -1,8 +1,12 @@
-"""``python -m icp_tpu_torch.cli``: ``register``, ``odometry`` and ``methods``
-against the JAX CLI, both on the CPU.  Both load their inputs in float32, so
-poses agree at float32 tolerance (atol 1e-5); iteration counts and keyframe
-flags are equal, and so are the ``--eval`` records (rtol 1e-4)."""
+"""``python -m icp_tpu_torch.cli``: ``register``, ``odometry``, ``graph`` and
+``methods`` against the JAX CLI, both on the CPU.  Both load scans in
+float32, so poses agree at float32 tolerance (atol 1e-5; 1e-4 through the
+float32 pose-graph solve of ``odometry --optimize``); iteration counts and
+keyframe flags are equal, and so are the ``--eval`` records (rtol 1e-4).
+``graph`` reads g2o files in float64 on the CPU on both sides, so its JSON
+record agrees to 1e-8 relative."""
 
+import dataclasses
 import glob
 import json
 import os
@@ -10,6 +14,7 @@ import os
 import numpy as np
 import pytest
 
+import icp_tpu_torch as T
 from icp_tpu import cli as jax_cli
 from icp_tpu_torch import cli, convert
 from icp_tpu_torch.io import read_ply, write_tum
@@ -201,11 +206,22 @@ def test_odometry_scan_to_map_hint_and_ignored_flags(capsys):
     assert "--multiscale is not supported with --scan-to-map" in err
 
 
-@pytest.mark.parametrize("flag", ["--optimize", "--online", "--loop-radius=2.0"])
+@pytest.mark.parametrize("flag", ["--optimize", "--online", "--loop-radius=2.0",
+                                  "--loop-descriptor=30", "--pipelined", "--async-refine",
+                                  "--odometry-weight=100", "--save=out.npz"])
 def test_odometry_refuses_slam_flags(capsys, flag):
-    """The SLAM flags come with the SLAM modules; until then argparse refuses them."""
+    """The online SLAM flags, descriptor closures, ``--save`` and ``--render``
+    come with their modules; until then argparse refuses them.  The offline
+    back end's flags (``--optimize``, ``--loop-radius``) are ported: they
+    run the pose-graph solve."""
+    args = ["--platform", "cpu", "odometry", "--scans", *SWEEPS[:2], flag]
+    if flag in ("--optimize", "--loop-radius=2.0"):
+        cli.main(args)
+        err = capsys.readouterr().err
+        assert "pose-graph cost:" in err
+        return
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--platform", "cpu", "odometry", "--scans", *SWEEPS[:2], flag])
+        cli.main(args)
     assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
 
@@ -213,3 +229,109 @@ def test_odometry_refuses_slam_flags(capsys, flag):
 def test_odometry_eval_pose_count_mismatch(capsys, gt_tum):
     with pytest.raises(SystemExit, match="ground truth has 6 poses"):
         cli.main(["--platform", "cpu", "odometry", "--scans", *SWEEPS[:3], "--eval", gt_tum])
+
+
+M600 = f"{DATA}/manhattan/m600.g2o"
+GRAPH = {
+    "gnc_gm pcg": ["--robust-kernel", "gnc_gm", "--solver", "pcg"],
+    "welsch two-pass": ["--robust-kernel", "welsch", "--scale-passes", "2", "--solver", "pcg",
+                        "--iterations", "15"],
+}
+
+
+def _graph(main, capsys, args):
+    main(["--platform", "cpu", "graph", *args])
+    captured = capsys.readouterr()
+    return json.loads(captured.out.strip().splitlines()[-1]), captured.err
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH))
+def test_graph_matches_jax_cli(capsys, tmp_path, case):
+    out = str(tmp_path / "opt.g2o")
+    got, err = _graph(cli.main, capsys, [M600, *GRAPH[case], "-o", out])
+    want, jerr = _graph(jax_cli.main, capsys, [M600, *GRAPH[case]])
+    assert sorted(got) == sorted(want)
+    assert (got["vertices"], got["edges"]) == (want["vertices"], want["edges"]) == (600, 1210)
+    np.testing.assert_allclose(got["chi2_initial"], want["chi2_initial"], rtol=1e-10)
+    np.testing.assert_allclose(got["chi2_final"], want["chi2_final"], rtol=1e-8)
+    # The same stderr lines, numbers aside.
+    assert [line.split(":")[0] for line in err.splitlines() if "wrote" not in line] == [
+        line.split(":")[0] for line in jerr.splitlines()]
+    assert f"wrote {out}" in err and os.path.getsize(out) > 0
+    if case.startswith("gnc_gm"):
+        assert "robust scale (auto): 1.786" in err  # the verify recipe's ~1.79
+        assert got["chi2_final"] < 1.3e3
+
+
+def test_graph_outlier_protocol_and_tum(capsys, tmp_path):
+    """``--outlier-protocol`` prints one JSON record per (mode, rate, kernel),
+    the records of ``robustness.run_protocol``; ``--tum`` writes the
+    trajectory."""
+    from icp_tpu_torch import robustness
+    from icp_tpu_torch.io import read_g2o, write_g2o
+
+    small = str(tmp_path / "small.g2o")
+    graph = read_g2o(M600, device="cpu")
+    keep = (graph.edges_ij < 120).all(-1)
+    write_g2o(small, dataclasses.replace(
+        graph, poses=T.geometry.RigidTransform(graph.poses.rotation[:120],
+                                               graph.poses.translation[:120]),
+        edges_ij=graph.edges_ij[keep],
+        measurements=T.geometry.RigidTransform(graph.measurements.rotation[keep],
+                                               graph.measurements.translation[keep]),
+        weights=graph.weights[keep], sqrt_information=graph.sqrt_information[keep]))
+    cli.main(["--platform", "cpu", "graph", small, "--outlier-protocol", "--outlier-rates",
+              "0.2", "--outlier-modes", "random", "--protocol-kernels", "none,welsch",
+              "--iterations", "10", "--solver", "dense", "--scale-passes", "2",
+              "--protocol-seed", "3"])
+    captured = capsys.readouterr()
+    recs = [json.loads(line) for line in captured.out.strip().splitlines()]
+    want = robustness.run_protocol(read_g2o(small, device="cpu"), rates=(0.2,),
+                                   modes=("random",), kernels=("none", "welsch"),
+                                   iterations=10, solver="dense", seed=3, scale_passes=2)
+    assert recs == json.loads(json.dumps(want))
+    tum = str(tmp_path / "traj.tum")
+    got, err = _graph(cli.main, capsys, [small, "--iterations", "3", "--tum", tum])
+    assert f"wrote {tum}" in err and len(open(tum).read().splitlines()) == 120
+
+
+BACK_END = {
+    "loops gnc_gm closure-information": [
+        "--loop-radius", "2.0", "--loop-min-separation", "4", "--robust-kernel", "gnc_gm",
+        "--closure-information", "--loop-weight", "100"],
+    "loops welsch two-pass": [
+        "--loop-radius", "2.0", "--loop-min-separation", "4", "--robust-kernel", "welsch",
+        "--mapping-threshold", "2", "--loop-max-cost", "1.0", "--gn-iterations", "12"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BACK_END))
+def test_odometry_back_end_matches_jax_cli(capsys, case):
+    """``odometry --optimize --loop-radius`` on the first 8 seq1 sweeps: the
+    closures found, registered and accepted, the stderr report and the
+    optimized poses, against the JAX CLI (both float32)."""
+    args = ["--scans", *sorted(glob.glob(f"{DATA}/seq1/sweep_*.conf"))[:8], *BACK_END[case]]
+    got, err = _odometry(cli.main, capsys, args)
+    want, jerr = _odometry(jax_cli.main, capsys, args)
+    lines = [line.split(":")[0] for line in err.splitlines()]
+    assert lines == [line.split(":")[0] for line in jerr.splitlines()]
+    assert lines[0] == "loop closures" and err.splitlines()[0].split(" (")[0] == \
+        jerr.splitlines()[0].split(" (")[0]
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert g["scan"] == w["scan"] and g.get("iterations") == w.get("iterations")
+        np.testing.assert_allclose(g["rotation"], w["rotation"], atol=1e-4)
+        np.testing.assert_allclose(g["translation"], w["translation"], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_graph_on_card_agrees_with_cpu(capsys, cuda_device):
+    """``graph`` on the card (the default platform, float32) against the CPU
+    (float64): chi² to 1e-3 relative, the same scale line."""
+    args = [M600, "--robust-kernel", "gnc_gm", "--solver", "pcg"]
+    cli.main(["graph", *args])
+    card = capsys.readouterr()
+    got = json.loads(card.out.strip().splitlines()[-1])
+    want, err = _graph(cli.main, capsys, args)
+    np.testing.assert_allclose(got["chi2_final"], want["chi2_final"], rtol=1e-3)
+    assert "robust scale (auto): 1.78" in card.err and "robust scale (auto): 1.78" in err
