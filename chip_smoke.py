@@ -106,14 +106,41 @@
    closure and the card's own graph against CPU runs (float64; float32
    where a row misses the gate), and K1 / K2 exact on the batch as run.
 
+11. Online SLAM and place recognition (float32 on the card;
+   ``bench.py::run_online_slam`` on ``ex_data/seq2loop``, ``run_descriptor``):
+   (a) ``slam.OnlineSlam`` over the 240 sweeps at capacity 1,024 in the
+   bench's configuration (trimmed, overlap 0.9; keyframes at 0.5 m / 0.15
+   rad; ``loop_every`` 8, radius 2, separation 10; gnc_gm at the auto scale;
+   odometry and loop weight 100) with the seq2loop test's driver (50
+   iterations a scan), serial and pipelined, each a warm-up over
+   the first 24 sweeps and a timed pass: add_scan p50 and p99 (the median
+   of the passes'), the refine stall (the slowest refining scan), keyframes,
+   closures, K1/K2 launches; gates: keyframe ATE <= 0.3 m against the ground
+   truth, a closure accepted before scan 160, keyframe indices and poses
+   after 176 sweeps against CPU float64 runs of the port (a pool of their
+   own, queued at the start; a stream over the gate counts as float32's only
+   if CPU float32 runs, from the sweeps and from the sweeps moved one ulp,
+   miss it too and the card stays within twice their deviation); (b)
+   ``scan_context`` over 1,024 scans of 1,024 points (20 x 60, radius 30)
+   and the 1,024-keyframe all-pairs retrieval, CUDA events, median of 5; 64
+   query rows against CPU float64 (distances to 1e-5, shifts equal where
+   the best leads the next by more than 1e-5); (c) ``relocalize`` of 8 lap-2
+   sweeps against the serial session's lap-1 keyframes, no pose prior,
+   descriptor range 30: matches and pose errors against the ground truth;
+   (d) ``merge_sessions`` of the two laps as descriptor-mode sessions with
+   ``anchor=None``: the recovered anchor (the ground truth is the identity)
+   and the merged keyframe ATE.
+
 Phase 3 also runs K1 and K2 on the queen-scale pair itself,
 (1, 10720, 10720, 3) float32, timed beside its bound, the plain version and
 the library yardstick, and on phase 7's inputs (scans 1-3 at B = 256 under
 its guesses: (256, 1024, 1024, 2) and scan2's (256, 1096, 1096, 2), whose
 last query block is ragged), scan1 under phase 8's hard guesses, and phase
 9's shapes (the seq1 chain's 119 pairs, a 1,024-point scan against an
-8,192-point map, the 71 seq3d pairs at 2,048 in 3D) and phase 10's seq2loop
-closure batch (its candidates on the ground-truth trajectory), exact.
+8,192-point map, the 71 seq3d pairs at 2,048 in 3D), phase 10's seq2loop
+closure batch (its candidates on the ground-truth trajectory) and phase
+11's shapes (the B = 1 scan-to-keyframe step, a 16-lane closure batch),
+exact.
 Each phase prints its seconds; the kernels line lists every case held exact
 and the launches of every path.
 
@@ -294,6 +321,18 @@ def _nn_cases(torch, np, dev):
                   seq3d.mask[1:].contiguous()))
     # Phase 10's shape: the seq2loop closure batch.
     cases.append(_closure_case(torch, np, icp, dev))
+    # Phase 11's shapes: OnlineSlam's B = 1 scan-to-keyframe step (seq2loop
+    # sweep 10 as the keyframe, sweep 11 the scan, from the identity) and a
+    # closure batch of loop_max_candidates = 16 lanes (the first 16 above).
+    sweeps = _seq2loop(np)[0]
+    key, scan = (icp.from_points(sweeps[i], capacity=CAPACITY, dtype=f32, device=dev)
+                 for i in (10, 11))
+    cases.append((f"slam scan-to-keyframe step (1, {CAPACITY}, {CAPACITY}, 2) f32", None,
+                  key.points[None].contiguous(), scan.points[None].contiguous(),
+                  scan.mask[None].contiguous()))
+    _, _, q, t, m = cases[-2]
+    cases.append((f"slam closure batch (16, {CAPACITY}, {CAPACITY}, 2) f32", None,
+                  q[:16].contiguous(), t[:16].contiguous(), m[:16].contiguous()))
     return cases
 
 
@@ -1843,8 +1882,8 @@ def _back_end_robust(torch, np, icp, dev) -> None:
     _say("back-robust", f"m600 protocol cell (random, rate 0.2, welsch, 2 passes, seed 3): "
                         f"recall {rec['recall']}, inliers kept {rec['inliers_kept']}, precision "
                         f"{rec['precision']:.4f}, {rec['n_injected']} injected, scale "
-                        f"{rec['scale']:.4f}, ATE vs the clean oracle {rec['ate_vs_oracle']:.4e} m, "
-                        f"{(time.perf_counter() - t0):.2f} s")
+                        f"{rec['scale']:.4f}, ATE vs the clean oracle "
+                        f"{rec['ate_vs_oracle']:.4e} m, {(time.perf_counter() - t0):.2f} s")
     torch.cuda.empty_cache()
 
 
@@ -1989,6 +2028,390 @@ def _phase_back_end(torch, np, icp, dev, refs, pool) -> tuple[dict, float, str]:
     _say("back-seconds", ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return paths, err, label
 
+# Phase 11: online SLAM and place recognition, after bench.py::run_online_slam
+# (:1248-1339, its seq2loop rows: the configuration at :1276-1284),
+# tests/test_seq2loop_slam.py (the gates: :99-131), bench.py::run_descriptor
+# (:637-688) and examples/place_recognition.py (:80, :94: relocalization with
+# no pose prior at descriptor range 30).  The driver runs 50 iterations a
+# scan, as in the test's fixture (:75-87): under the bench's tolerances (0.1
+# deg, 1 cm) the JAX package itself ends the stream at a keyframe ATE of 2.28
+# m, so the test's 0.3 m gate holds only there.
+SLAM_CFG = dict(max_iterations=50)
+SLAM_KW = dict(translation_threshold=0.5, angle_threshold=0.15, loop_every=8, loop_radius=2.0,
+               loop_min_separation=10, robust="gnc_gm", robust_scale="auto",
+               odometry_weight=100.0, loop_weight=100.0)
+SLAM_MODES = ("serial", "pipelined")
+SLAM_TIMED, SLAM_WARMUP_SCANS = 1, 24  # timed passes, warm-up sweeps: both cut (PERF.md §4)
+# The CPU runs stream the first SLAM_GATED sweeps (the stream is causal: the
+# same computation as the card's up to there, four closure solves included).
+SLAM_GATED = 176
+SLAM_ATE_M, SLAM_FIRST_CLOSURE_BEFORE = 0.3, 160
+LAP = 120  # seq2loop's lap: scan 120 + k revisits scan k
+DESC_T, DESC_N, DESC_RANGE, DESC_ROWS, DESC_REPS = 1024, 1024, 30.0, 64, 5
+RELOC_SWEEPS = tuple(range(LAP, 2 * LAP, 15))  # 8 lap-2 sweeps
+
+
+def _slam_stream(slam, icp, clouds, mode, dev, record=None, capture=None):
+    """One OnlineSlam pass of phase 11's configuration over ``clouds``, then
+    ``finalize``: (session, keyframe scan indices, (scan, closures) of each
+    scan whose refinement solved, and the capture).  ``record`` collects
+    each add_scan's seconds; after ``capture`` scans the keyframe indices
+    so far and the keyframe translations are captured (pipelined: the
+    scans materialized by then)."""
+    online = slam.OnlineSlam(icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9)),
+                             icp.DriverConfig(**SLAM_CFG), pipelined=mode == "pipelined",
+                             device=dev, **SLAM_KW)
+    updates, captured = [], None
+    for scan in clouds:
+        t0 = time.perf_counter()
+        u = online.add_scan(scan)
+        if record is not None:
+            record.append(time.perf_counter() - t0)
+        updates.append(u)
+        if len(updates) == capture:
+            done = [v for v in updates if v is not None]
+            captured = ([t for t, v in enumerate(done) if v.is_keyframe],
+                        online.keyframe_poses.translation.double().cpu().numpy())
+    updates = [u for u in updates + [online.flush()] if u is not None]
+    online.finalize()
+    keyframes = [t for t, u in enumerate(updates) if u.is_keyframe]
+    refined = [(t, u.num_closures) for t, u in enumerate(updates) if u.refined]
+    return online, keyframes, refined, captured
+
+
+def _phase11_reference(mode: str, dtype: str, ulp: int = 0) -> dict:
+    """Phase 11a's stream on the CPU over the first SLAM_GATED sweeps (a
+    worker process's job, one thread): the keyframe scan indices and
+    translations there.  ``ulp`` = +-1 moves every float32 coordinate one
+    ulp up or down first (the float32 rule of phase 8e)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import slam
+
+    t0 = time.perf_counter()
+    sweeps = _seq2loop(np)[0][:SLAM_GATED]
+    if ulp:
+        sweeps = [np.nextafter(a.astype(np.float32), np.float32(ulp * np.inf)) for a in sweeps]
+    clouds = [icp.from_points(a, capacity=CAPACITY, dtype=getattr(torch, dtype), device="cpu")
+              for a in sweeps]
+    online, _, _, (keyframes, translation) = _slam_stream(slam, icp, clouds, mode, "cpu",
+                                                          capture=SLAM_GATED)
+    return {"keyframes": keyframes, "translation": translation,
+            "closures": len(online._loop_edges), "seconds": time.perf_counter() - t0}
+
+
+def _slam_float32_gate(label: str, got, cpu: dict, float32_runs) -> str:
+    """Max |dt| of the card's keyframe translations from CPU float64, gate
+    POSE_AGREEMENT_TOL_M.  Phase 8e's float32 rule, read for a stream: its
+    keyframes share one chain of roundoff, so they are not independent
+    lanes and the miss is the stream's.  A card stream over the gate passes only when a
+    CPU float32 run of the same stream misses the gate too (from the same
+    sweeps, or from sweeps moved one ulp either way: ``float32_runs(ulp)``
+    gives their translations, on demand), and the card stays within twice
+    the largest float32 deviation."""
+    import numpy as np
+
+    want64 = cpu["translation"]
+    dev = np.linalg.norm(np.asarray(got, dtype=np.float64) - want64, axis=-1)
+    over = np.flatnonzero(dev > POSE_AGREEMENT_TOL_M)
+    line = (f"CUDA f32 vs CPU f64 max |dt| {dev.max():.4e} m (gate {POSE_AGREEMENT_TOL_M}), "
+            f"{len(over)} of {len(dev)} over it")
+    if not len(over):
+        return line
+    runs, worst = [], 0.0
+    for ulp in (0, 1, -1):  # the perturbed runs only while the rule is not met
+        dev32 = np.linalg.norm(float32_runs(ulp) - want64, axis=-1)
+        worst = max(worst, dev32.max())
+        runs.append(f"CPU f32{f' {ulp:+d} ulp' if ulp else ''} max {dev32.max():.4e} m, "
+                    f"{int((dev32 > POSE_AGREEMENT_TOL_M).sum())} over")
+        if worst > POSE_AGREEMENT_TOL_M and dev.max() <= 2 * worst:
+            return f"{line}; the CPU float32 runs miss it too ({'; '.join(runs)}): float32's"
+    raise AssertionError(f"{label}: over the gate from CPU f64 beyond float32's own "
+                         f"deviation ({line}; {'; '.join(runs)})")
+
+
+def _warm_solves(torch, icp, dev) -> None:
+    """One single-pass and one two-pass refinement solve on a 12-node chain
+    with 2 closures: the solver libraries initialize here, not in the first
+    timed refinement (the warm-up pass over 24 sweeps closes no loop)."""
+    from icp_tpu_torch import slam
+
+    n = 12
+    poses = icp.identity(2, (n,), dtype=torch.float32, device=dev)
+    odo = icp.RigidTransform(poses.rotation[1:], torch.full((n - 1, 2), 0.5, device=dev))
+    loop = icp.identity(2, (2,), dtype=torch.float32, device=dev)
+    graph, mask = slam._assemble_graph(
+        poses, odo, torch.full((n - 1,), 100.0, device=dev),
+        torch.tensor([[0, 10], [1, 11]], dtype=torch.int32, device=dev), loop,
+        torch.full((2,), 100.0, device=dev), None)
+    slam._solve_single(graph, mask, SLAM_KW["robust"], "auto", 30, "dense")
+    slam._solve_two_pass(graph, mask, odo, "welsch", "auto", 2, 30, "dense")
+    torch.cuda.synchronize()
+
+
+def _kf_ate(icp, torch, np, ev, poses, gt, scans) -> float:
+    """Keyframe ATE (mean, m) against the ground truth, first-pose aligned
+    (the SLAM frame is scan 0's; tests/test_seq2loop_slam.py:113-131)."""
+    truth = _gt_transform(icp, torch, np, gt[np.asarray(scans)])
+    return float(ev.ate(icp.RigidTransform(poses.rotation.double().cpu(),
+                                           poses.translation.double().cpu()),
+                        truth, align="first").mean)
+
+
+def _slam_streams(torch, np, icp, dev, sweeps, gt) -> tuple[dict, dict, dict]:
+    """Phase 11a on the card: the 240-sweep stream, serial and pipelined;
+    returns the launches of each path, each mode's last session with its
+    keyframe scan indices, and what it captured after SLAM_GATED sweeps."""
+    from icp_tpu_torch import eval as ev
+    from icp_tpu_torch import slam
+
+    clouds = [icp.from_points(a, capacity=CAPACITY, dtype=torch.float32, device=dev)
+              for a in sweeps]
+    paths, sessions, captured = {}, {}, {}
+    _warm_solves(torch, icp, dev)
+    for mode in SLAM_MODES:
+        _slam_stream(slam, icp, clouds[:SLAM_WARMUP_SCANS], mode, dev)  # warm-up
+        p50, p99, stalls = [], [], []
+        for rep in range(SLAM_TIMED):
+            times = []
+            if rep == 0:
+                _reset_launches()
+            online, keyframes, refined, captured[mode] = _slam_stream(
+                slam, icp, clouds, mode, dev, times, capture=SLAM_GATED)
+            torch.cuda.synchronize()
+            if rep == 0:
+                paths[f"slam {mode}"] = _read_launches()
+            # The first scan only promotes; the refining scans carry the solve.
+            ms = np.asarray(times[1:]) * 1e3
+            p50.append(float(np.percentile(ms, 50)))
+            p99.append(float(np.percentile(ms, 99)))
+            # Pipelined updates land one scan late: the solve runs in the
+            # add_scan after the refining scan's.
+            lag = 1 if mode == "pipelined" else 0
+            stalls.append(max((times[t + lag] for t, _ in refined if t + lag < len(times)),
+                              default=0.0) * 1e3)
+        sessions[mode] = (online, keyframes)
+        ate = _kf_ate(icp, torch, np, ev, online.keyframe_poses, gt, keyframes)
+        accepting = [t for t, n in refined if n > 0 and t < len(clouds) - 1]
+        if not ate <= SLAM_ATE_M:
+            raise AssertionError(f"slam {mode}: keyframe ATE {ate} > {SLAM_ATE_M} m")
+        if not accepting or accepting[0] >= SLAM_FIRST_CLOSURE_BEFORE:
+            raise AssertionError(f"slam {mode}: no closure accepted before scan "
+                                 f"{SLAM_FIRST_CLOSURE_BEFORE} (refines {refined[:6]})")
+        _say("slam", f"{mode}, {len(clouds)} seq2loop sweeps at {CAPACITY}: add_scan p50 "
+                     f"{np.median(p50):.2f} ms, p99 {np.median(p99):.2f} ms (median of "
+                     f"{SLAM_TIMED} passes: p50 {', '.join(f'{x:.2f}' for x in p50)}; p99 "
+                     f"{', '.join(f'{x:.2f}' for x in p99)}), refine stall "
+                     f"{np.median(stalls):.2f} ms (the slowest refining scan: "
+                     f"{', '.join(f'{x:.2f}' for x in stalls)}); {len(keyframes)} keyframes, "
+                     f"{len(online._loop_edges)} closures, {len(refined)} refining solves, the "
+                     f"first accepting at scan {accepting[0]}; keyframe ATE {ate:.4f} m (gate "
+                     f"{SLAM_ATE_M}); launches {paths[f'slam {mode}']}")
+    return paths, sessions, captured
+
+
+def _slam_cpu_check(captured, slam_refs) -> None:
+    """Phase 11a against the CPU: the keyframe decisions and poses after the
+    first SLAM_GATED sweeps.  ``slam_refs`` is (the worker pool, its runs
+    by (mode, dtype[, ulp])); a float32 run not queued at the start is
+    queued when a miss needs it.  The float32 rule: a miss counts as float32's
+    only if a CPU float32 run misses too."""
+    pool, refs = slam_refs
+    for mode in SLAM_MODES:
+        keyframes, got = captured[mode]
+        cpu = refs[mode, "float64"].get()
+
+        def float32_run(ulp, mode=mode):
+            if (mode, "float32", ulp) not in refs:
+                refs[mode, "float32", ulp] = pool.apply_async(
+                    _phase11_reference, (mode, "float32", ulp))
+            return refs[mode, "float32", ulp].get()
+
+        line = (f"slam {mode}, the first {SLAM_GATED} sweeps, vs CPU f64 "
+                f"({cpu['seconds']:.1f} s): ")
+        if keyframes == cpu["keyframes"]:
+            line += f"{len(keyframes)} keyframe indices equal, " + _slam_float32_gate(
+                f"slam {mode}", got, cpu, lambda ulp, run=float32_run: run(ulp)["translation"])
+        else:
+            if float32_run(0)["keyframes"] == cpu["keyframes"]:
+                raise AssertionError(f"slam {mode}: keyframe indices differ from CPU f64 "
+                                     f"where CPU f32 keeps them")
+            line += (f"keyframe indices differ ({len(keyframes)} vs {len(cpu['keyframes'])}), "
+                     f"and CPU f32's differ too: float32's")
+        _say("slam-cpu", line + f"; closures by then: CPU f64 {cpu['closures']}")
+
+
+def _descriptor_shapes(torch, np, dev) -> dict:
+    """Phase 11b: bench.py::run_descriptor's shapes (1,024 scans of 1,024
+    points, a 20 x 60 grid at radius 30; the 1,024-keyframe all-pairs
+    retrieval), CUDA events, median of 5; 64 query rows against CPU
+    float64 on the card's descriptors."""
+    from icp_tpu_torch.ops import descriptor as desc
+
+    rng = np.random.default_rng(17)
+    pts = torch.tensor(rng.uniform(-20, 20, (DESC_T, DESC_N, 2)), dtype=torch.float32,
+                       device=dev)
+    mask = torch.ones((DESC_T, DESC_N), dtype=torch.bool, device=dev)
+
+    def timed(fn):
+        out, times = fn(), []
+        for _ in range(DESC_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return out, float(np.median(times)), times
+
+    _reset_launches()
+    descs, build_ms, build_t = timed(lambda: desc.scan_context(pts, mask, max_radius=DESC_RANGE))
+    (dist, shift), ret_ms, ret_t = timed(lambda: desc.descriptor_distances(descs))
+    launches = _read_launches()
+    # Build: the card's float32 against CPU float64 on the same points (a
+    # point on a bin edge may land on either side).
+    rows = np.arange(0, DESC_T, DESC_T // DESC_ROWS)
+    built64 = desc.scan_context(pts[rows].double().cpu(), mask[rows].cpu(), max_radius=DESC_RANGE)
+    bins_off = int((descs[rows].double().cpu() - built64).abs().gt(1e-4).sum())
+    # Retrieval: 64 query rows against the CPU float64 run on the card's
+    # descriptors; shifts where the best leads the next by more than 1e-5.
+    d64 = descs.double().cpu()
+    want_d, want_s = desc.descriptor_query(d64[rows], d64)
+    got_d = dist[torch.as_tensor(rows, device=dev)].double().cpu()
+    got_s = shift[torch.as_tensor(rows, device=dev)].cpu()
+    err = float((got_d - want_d).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"descriptor retrieval: |dist - CPU f64| {err} > 1e-5")
+    unit = d64 / d64.norm(dim=-2, keepdim=True).clamp(min=1e-300)
+    flat_q = unit[rows].reshape(len(rows), -1)
+    per_shift = torch.stack([1.0 - flat_q @ torch.roll(unit, -s, dims=-1).reshape(DESC_T, -1).T
+                             / unit.shape[-1] for s in range(unit.shape[-1])]).sort(0).values
+    clear = (per_shift[1] - per_shift[0]) > 1e-5
+    bad = int((got_s != want_s)[clear].sum())
+    if bad:
+        raise AssertionError(f"descriptor retrieval: {bad} shifts differ where clear")
+    _say("descriptor", f"scan_context ({DESC_T}, {DESC_N}, 2) -> 20 x 60: {build_ms:.3f} ms "
+                       f"(median of {DESC_REPS}: {', '.join(f'{x:.3f}' for x in build_t)}); "
+                       f"all-pairs retrieval {DESC_T} x {DESC_T} x 60 shifts: {ret_ms:.3f} ms "
+                       f"({', '.join(f'{x:.3f}' for x in ret_t)}); {len(rows)} query rows vs "
+                       f"CPU f64: max |d dist| {err:.3e} (gate 1e-5), shifts equal on "
+                       f"{int(clear.sum())} clear pairs ({int((~clear).sum())} near-ties "
+                       f"skipped); build vs CPU f64: {bins_off} of {built64.numel()} bins off by "
+                       f"> 1e-4; launches {launches}")
+    return {"descriptor build + retrieval": launches}
+
+
+def _relocalize_laps(torch, np, icp, dev, serial, sweeps, gt) -> dict:
+    """Phase 11c: 8 lap-2 sweeps relocalized with no pose prior against the
+    serial session's lap-1 keyframes."""
+    from icp_tpu_torch import slam
+
+    online, keyframes = serial
+    lap1 = [k for k, t in enumerate(keyframes) if t < LAP]
+    idx = torch.as_tensor(lap1, device=dev)
+    clouds = online._folded_clouds()
+    stack = icp.PointCloud(clouds.points[idx], clouds.count[idx])
+    poses = online.keyframe_poses
+    kf_poses = icp.RigidTransform(poses.rotation[idx], poses.translation[idx])
+    truth = _gt_transform(icp, torch, np, gt)
+    t0_inv = icp.inverse(icp.RigidTransform(truth.rotation[0], truth.translation[0]))
+    _reset_launches()
+    results, t0 = [], time.perf_counter()
+    for q in RELOC_SWEEPS:
+        scan = icp.from_points(sweeps[q], capacity=CAPACITY, dtype=torch.float32, device=dev)
+        results.append(slam.relocalize(scan, stack, kf_poses, online._method, online._config,
+                                       descriptor_range=DESC_RANGE))
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, _read_launches()
+    lines = []
+    for q, res in zip(RELOC_SWEEPS, results):
+        if res is None:
+            lines.append(f"{q}: none")
+            continue
+        want = icp.compose(t0_inv, icp.RigidTransform(truth.rotation[q], truth.translation[q]))
+        err = float(np.linalg.norm(res.pose.translation.double().cpu().numpy()
+                                   - want.translation.numpy()))
+        if not math.isfinite(err):
+            raise AssertionError(f"relocalize sweep {q}: non-finite pose")
+        lines.append(f"{q}: kf {res.keyframe} (scan {keyframes[lap1[res.keyframe]]}), error "
+                     f"{err:.4f} m, dist {res.descriptor_distance:.3f}, cost {res.cost:.4g}")
+    found = sum(r is not None for r in results)
+    _say("relocalize", f"{found} of {len(RELOC_SWEEPS)} lap-2 sweeps relocalized against "
+                       f"{len(lap1)} lap-1 keyframes (no pose prior, range {DESC_RANGE}) in "
+                       f"{seconds * 1e3:.1f} ms; " + "; ".join(lines) + f"; launches {launches}")
+    return {"relocalize": launches}
+
+
+def _merge_laps(torch, np, icp, dev, sweeps, gt) -> dict:
+    """Phase 11d: the two laps as separate descriptor-mode sessions, merged
+    with anchor=None (the anchor recovered by relocalization)."""
+    from icp_tpu_torch import eval as ev
+    from icp_tpu_torch import slam
+
+    clouds = [icp.from_points(a, capacity=CAPACITY, dtype=torch.float32, device=dev)
+              for a in sweeps]
+    kw = dict(SLAM_KW, loop_detector="descriptor", descriptor_range=DESC_RANGE)
+    method = icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9))
+    laps, t0 = [], time.perf_counter()
+    for lo in (0, LAP):
+        online = slam.OnlineSlam(method, icp.DriverConfig(**SLAM_CFG), device=dev, **kw)
+        kfs = [lo + t for t in range(LAP) if online.add_scan(clouds[lo + t]).is_keyframe]
+        online.finalize()
+        laps.append((online, kfs))
+    stream_s = time.perf_counter() - t0
+    (a, kfa), (b, kfb) = laps
+    _reset_launches()
+    t0 = time.perf_counter()
+    merged, report = slam.merge_sessions(a, b)
+    torch.cuda.synchronize()
+    merge_s, launches = time.perf_counter() - t0, _read_launches()
+    anchor_t = report.anchor.translation.double().cpu().numpy()
+    anchor_a = math.degrees(float(torch.atan2(report.anchor.rotation[1, 0],
+                                              report.anchor.rotation[0, 0])))
+    ates = [_kf_ate(icp, torch, np, ev, s.keyframe_poses, gt, k) for s, k in laps]
+    ate = _kf_ate(icp, torch, np, ev, merged.keyframe_poses, gt, kfa + kfb)
+    if not (np.isfinite(anchor_t).all() and math.isfinite(ate)):
+        raise AssertionError(f"merge: non-finite anchor {anchor_t} or ATE {ate}")
+    _say("merge", f"laps of {len(kfa)} + {len(kfb)} keyframes ({len(a._loop_edges)} + "
+                  f"{len(b._loop_edges)} closures; streamed in {stream_s:.1f} s, keyframe ATE "
+                  f"{ates[0]:.4f} / {ates[1]:.4f} m); merge_sessions(anchor=None) in "
+                  f"{merge_s:.2f} s: anchor translation {np.round(anchor_t, 4).tolist()} m, "
+                  f"angle {anchor_a:.3f} deg (ground truth: identity), {report.new_closures} "
+                  f"new closures, refined {report.refined}; merged keyframe ATE {ate:.4f} m; "
+                  f"launches {launches}")
+    return {"merge_sessions": launches}
+
+
+def _phase_slam(torch, np, icp, dev, slam_refs) -> dict:
+    """Phase 11: online SLAM and place recognition; returns the launches of
+    each path."""
+    sweeps, gt, _ = _seq2loop(np)
+    seconds, t0 = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    paths, sessions, captured = _slam_streams(torch, np, icp, dev, sweeps, gt)
+    _slam_cpu_check(captured, slam_refs)
+    done("a")
+    paths.update(_descriptor_shapes(torch, np, dev))
+    done("b")
+    paths.update(_relocalize_laps(torch, np, icp, dev, sessions["serial"], sweeps, gt))
+    done("c")
+    paths.update(_merge_laps(torch, np, icp, dev, sweeps, gt))
+    done("d")
+    _say("slam-seconds", ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     import multiprocessing
 
@@ -2001,21 +2424,34 @@ def main() -> int:
 
     # The workers run at the lowest priority, so that the host-bound timings
     # of phases 3-9 keep the cores they need.
-    pool = multiprocessing.get_context("spawn").Pool(REFERENCE_WORKERS, initializer=os.nice,
-                                                      initargs=(19,))
+    context = multiprocessing.get_context("spawn")
+    pool = context.Pool(REFERENCE_WORKERS, initializer=os.nice, initargs=(19,))
+    # Phase 11's CPU streams take minutes each: a pool of their own (one
+    # thread a worker), so that phases 9 and 10 never wait behind them.
+    slam_pool = context.Pool(3, initializer=os.nice, initargs=(19,))
     try:
         refs = {task: pool.apply_async(_phase9_reference, (task,)) for task in REFERENCE_TASKS}
         for name, *_ in G2O_CELLS:
             for dtype in ("float64", "float32"):
                 refs[f"g2o {name} {dtype}"] = pool.apply_async(
                     _phase10_reference, ("g2o", (name, dtype)))
-        return _phases(refs, pool)
+        slam_refs = {(mode, "float64"): slam_pool.apply_async(_phase11_reference,
+                                                               (mode, "float64"))
+                     for mode in SLAM_MODES}
+        # The float32 runs are read only where the card misses the gate; the
+        # pipelined stream does (float32 does not determine it to the
+        # gate), so its first float32 run is queued now, the others when a
+        # miss needs them.
+        slam_refs["pipelined", "float32", 0] = slam_pool.apply_async(
+            _phase11_reference, ("pipelined", "float32"))
+        return _phases(refs, pool, (slam_pool, slam_refs))
     finally:
-        pool.terminate()
-        pool.join()
+        for p in (pool, slam_pool):
+            p.terminate()
+            p.join()
 
 
-def _phases(refs, pool) -> int:
+def _phases(refs, pool, slam_refs) -> int:
     import numpy as np
     import torch
 
@@ -2182,6 +2618,8 @@ def _phases(refs, pool) -> int:
         errs[k] = max(errs[k], closure_err)
     exact_cases.append(closure_label)
     phase_done("10 back end")
+    paths.update(_phase_slam(torch, np, icp, dev, slam_refs))
+    phase_done("11 slam")
     _say("seconds", ", ".join(f"phase {k} {v}" for k, v in phase_s.items()))
 
     def entry(k, name, replaces):

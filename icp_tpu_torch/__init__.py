@@ -13,8 +13,11 @@ server (``serve.BatchingRegistrar``), the pose-graph back end
 (``pose_graph``: GN/LM with dense, CG and block-Jacobi PCG solves, robust
 kernels and GNC, two-pass robust solves, loop candidates and closure
 registration; ``robustness``: the outlier-injection protocol; g2o files in
-``io``), the scan/sweep/PLY readers and a CLI (``python -m
-icp_tpu_torch.cli``: ``register``, ``odometry``, ``graph``).  The exact masked 1-NN
+``io``), Scan Context place recognition (``ops.descriptor``), online and
+offline SLAM (``slam``: ``OnlineSlam``, ``run_slam``, ``merge_sessions``,
+``relocalize``), checkpoints (``checkpoint``, ``resilient``), the
+scan/sweep/PLY readers and a CLI (``python -m icp_tpu_torch.cli``:
+``register``, ``odometry``, ``graph``).  The exact masked 1-NN
 correspondence is a CUDA kernel for Hopper (``csrc/nn.cu``, built with
 ``nvcc`` at first use).  The JAX package is the reference each module is
 tested against.  The entry points put their tensors on the card unless the
@@ -42,6 +45,7 @@ Quick start (on the card, in float32)::
 import torch
 
 from . import (
+    checkpoint,
     cloud,
     convert,
     driver,
@@ -55,8 +59,10 @@ from . import (
     odometry,
     ops,
     pose_graph,
+    resilient,
     robustness,
     serve,
+    slam,
     utils,
 )
 from .cloud import PointCloud, bucket_capacity, from_points, pad_to, stack, to_numpy
@@ -92,6 +98,7 @@ __all__ = [
     "RigidTransform",
     "apply",
     "bucket_capacity",
+    "checkpoint",
     "cloud",
     "compose",
     "converge",
@@ -122,8 +129,10 @@ __all__ = [
     "read_ply",
     "register_method",
     "registered_methods",
+    "resilient",
     "robustness",
     "serve",
+    "slam",
     "stack",
     "to_numpy",
     "utils",

@@ -11,11 +11,15 @@ Port of the ``register``, ``odometry`` and ``methods`` subcommands of
 * ``odometry`` — a scan sequence into a trajectory: every consecutive pair
   in one batch (``--coarse``, ``--multiscale``), or ``--scan-to-map``
   against an aggregated voxel map (``--device-map`` keeps it on the card);
-  with ``--optimize`` / ``--loop-radius`` the offline back end: loop
-  candidates within the radius, registered in one batch, then a pose-graph
-  solve (``--robust-kernel``, ``--scale-passes``, ``--closure-information``);
-  one JSON record per scan, and with ``--eval GT_TUM`` one more with the
-  ATE and RPE against a TUM ground truth.
+  with ``--optimize`` / ``--loop-radius`` / ``--loop-descriptor RANGE`` the
+  offline back end: loop candidates within the radius or by Scan Context
+  appearance, registered in one batch, then a pose-graph solve
+  (``--robust-kernel``, ``--scale-passes``, ``--closure-information``);
+  ``--online`` streams the scans through ``slam.OnlineSlam`` instead
+  (``--pipelined``, ``--loop-every``, ``--keyframe-translation`` /
+  ``--keyframe-angle``, ``--odometry-weight``); one JSON record per scan,
+  with ``--eval GT_TUM`` one more with the ATE and RPE against a TUM ground
+  truth, and ``--save`` writes the poses to an ``.npz`` checkpoint.
 * ``graph`` — optimize a g2o pose graph (robust kernels, dense / CG / PCG),
   or run the outlier-injection protocol on it (``--outlier-protocol``).
 * ``methods`` — list the registry (the reference prints it on an unknown
@@ -26,10 +30,7 @@ Inputs load in float32 with power-of-two bucket capacity
 float32 on the card, float64 with ``--platform cpu``.  ``--platform gpu``
 (the default) runs on the CUDA card and fails without one; ``--platform
 cpu`` runs on the CPU.  Not ported, so refused: the JAX CLI's
-``--aot-cache``, ``--loop-descriptor`` / ``--descriptor-max-distance``, the
-online SLAM flags (``--online``, ``--pipelined``, ``--async-refine``,
-``--loop-every``, ``--keyframe-*``, ``--odometry-weight``), ``--render`` and
-``--save``.
+``--aot-cache``, ``--async-refine`` and ``--render``.
 """
 
 from __future__ import annotations
@@ -253,10 +254,19 @@ def _scan_to_map(args, device, dim) -> None:
             rec["iterations"] = int(result.iteration_count)
             rec["cost"] = float(result.cost)
         print(json.dumps(rec))
+    poses = RigidTransform(torch.stack([p.rotation for p in poses]),
+                           torch.stack([p.translation for p in poses]))
+    if args.save:
+        _save_poses(args.save, poses, "trajectory")
     if args.eval:
-        _eval_against_tum(RigidTransform(torch.stack([p.rotation for p in poses]),
-                                         torch.stack([p.translation for p in poses])),
-                          args.eval, dim)
+        _eval_against_tum(poses, args.eval, dim)
+
+
+def _save_poses(path: str, poses, what: str) -> None:
+    from .checkpoint import save_pytree
+
+    save_pytree(path, {"rotation": poses.rotation, "translation": poses.translation})
+    print(f"saved {what} to {path}", file=sys.stderr)
 
 
 def cmd_odometry(args):
@@ -275,10 +285,12 @@ def cmd_odometry(args):
         scans = pad_to(scans, _cli_capacity(scans.capacity, args))
     method = _make_method(args.method, dim, _parse_config(args.config))
     cfg = _driver_config(args)
+    if args.online:
+        return _online(args, scans, method, cfg, device, dim)
     traj = odometry.chain_scans(scans, method, cfg, coarse=args.coarse,
                                 multiscale=args.multiscale)
     poses = traj.poses
-    if args.optimize or args.loop_radius:
+    if args.optimize or args.loop_radius or args.loop_descriptor:
         poses = _back_end(args, scans, traj, method, cfg)
     for t, path in enumerate(args.scans):
         rec = _pose_record(path, poses.rotation[t], poses.translation[t])
@@ -286,27 +298,102 @@ def cmd_odometry(args):
             rec["iterations"] = int(traj.registration.iteration_count[t - 1])
             rec["cost"] = float(traj.registration.cost[t - 1])
         print(json.dumps(rec))
+    if args.save:
+        _save_poses(args.save, poses, "trajectory")
     if args.eval:
         _eval_against_tum(poses, args.eval, dim)
 
 
+def _online(args, scans, method, cfg, device, dim) -> None:
+    """``odometry --online``: the scans streamed through ``slam.OnlineSlam``
+    (periodic robust loop closure, live re-anchoring), one JSON record per
+    scan as it materializes; then ``finalize``, its stderr report, and the
+    live poses for ``--eval``."""
+    from .cloud import PointCloud
+    from .geometry import RigidTransform
+    from .slam import OnlineSlam
+
+    online = OnlineSlam(
+        method, cfg,
+        translation_threshold=args.keyframe_translation, angle_threshold=args.keyframe_angle,
+        loop_every=args.loop_every, loop_radius=args.loop_radius or 2.0,
+        loop_detector="descriptor" if args.loop_descriptor else "radius",
+        descriptor_range=args.loop_descriptor,
+        descriptor_max_distance=args.descriptor_max_distance,
+        loop_min_separation=args.loop_min_separation, loop_max_cost=args.loop_max_cost,
+        loop_weight=args.loop_weight, odometry_weight=args.odometry_weight,
+        robust=args.robust_kernel, robust_scale=args.robust_scale,
+        scale_passes=args.scale_passes, mapping_threshold=args.mapping_threshold,
+        closure_information=args.closure_information, pipelined=args.pipelined,
+        device=device,
+    )
+    live = []
+
+    def emit(u):
+        path = args.scans[len(live)]
+        live.append(u.pose)
+        rec = _pose_record(path, u.pose.rotation, u.pose.translation)
+        rec.update(keyframe=bool(u.is_keyframe), refined=bool(u.refined),
+                   closures=int(u.num_closures))
+        print(json.dumps(rec))
+
+    for t in range(scans.points.shape[0]):
+        # Pipelined updates arrive one scan late (the first launch returns
+        # None).
+        u = online.add_scan(PointCloud(scans.points[t], scans.count[t]))
+        if u is not None:
+            emit(u)
+    if args.pipelined:
+        u = online.flush()
+        if u is not None:
+            emit(u)
+    flushed = online.finalize()
+    kf = online.keyframe_poses
+    print(f"online slam: {kf.translation.shape[0]} keyframes, {len(online._loop_edges)} closures"
+          + (" (finalize ran a refinement)" if flushed else ""), file=sys.stderr)
+    w = online.closure_weights
+    if w is not None and len(w):
+        # Rejected closures sit near 0, inliers near 1.
+        print(f"closure robust weights: min {float(np.min(w)):.4g} "
+              f"median {float(np.median(w)):.4g} "
+              f"(kept >=0.5: {int((w >= 0.5).sum())}/{len(w)}; "
+              f"scale {float(online._robust_scale_used):.4g})", file=sys.stderr)
+    if args.save:
+        _save_poses(args.save, kf, "keyframe trajectory")
+    if args.eval:
+        # The live per-scan poses (what the robot acted on), not the
+        # keyframe graph.
+        _eval_against_tum(RigidTransform(torch.stack([p.rotation for p in live]),
+                                         torch.stack([p.translation for p in live])),
+                          args.eval, dim)
+
+
 def _back_end(args, scans, traj, method, cfg):
     """The offline back end of ``odometry``: loop candidates within
-    ``--loop-radius``, registered in one batch, then the pose-graph solve;
-    returns the optimized poses.  Stderr lines as in the JAX CLI."""
+    ``--loop-radius`` or by Scan Context appearance (``--loop-descriptor``,
+    each seeded by the descriptor's yaw), registered in one batch, then the
+    pose-graph solve; returns the optimized poses.  Stderr lines as in the
+    JAX CLI."""
     from . import geometry, pose_graph
     from .cloud import PointCloud
 
-    loop_edges = loop_meas = None
-    if args.loop_radius:
+    loop_edges = loop_meas = cands = guesses = None
+    if args.loop_descriptor:
+        from .ops.descriptor import find_loop_candidates_descriptor, scan_context, yaw_seeds
+
+        descs = scan_context(scans.points, scans.mask, max_radius=args.loop_descriptor)
+        cands, yaw = find_loop_candidates_descriptor(
+            descs, args.descriptor_max_distance, min_separation=args.loop_min_separation)
+        guesses = yaw_seeds(scans, cands, yaw)
+    elif args.loop_radius:
         cands = pose_graph.find_loop_candidates(traj.poses, radius=args.loop_radius,
                                                 min_separation=args.loop_min_separation)
-        if len(cands):
-            loop_edges, loop_meas, lc_costs = pose_graph.register_loop_closures(
-                scans, traj.poses, cands, method, cfg, max_cost=args.loop_max_cost,
-                coarse=args.loop_coarse)
-            print(f"loop closures: {len(loop_edges)} of {len(cands)} candidates accepted "
-                  f"(costs {np.round(lc_costs.cpu().numpy(), 4).tolist()})", file=sys.stderr)
+    if cands is not None and len(cands):
+        loop_edges, loop_meas, lc_costs = pose_graph.register_loop_closures(
+            scans, traj.poses, cands, method, cfg, max_cost=args.loop_max_cost,
+            coarse=args.loop_coarse, guesses=guesses)
+        print(f"loop closures: {len(loop_edges)} of {len(cands)} candidates accepted "
+              f"(costs {np.round(lc_costs.cpu().numpy(), 4).tolist()})", file=sys.stderr)
     loop_info = None
     if args.closure_information and loop_edges is not None:
         from .ops.covariance import cloud_information
@@ -525,6 +612,34 @@ def main(argv=None):
         "--loop-coarse", action="store_true",
         help="seed closure registrations with the global initializer (large drift)",
     )
+    p_odo.add_argument(
+        "--loop-descriptor", type=float, default=None, metavar="RANGE",
+        help="detect loop closures by Scan Context appearance instead of pose radius "
+        "(RANGE = sensor range, the descriptor's radial extent); immune to pose drift, and "
+        "each closure is seeded with the descriptor's yaw estimate",
+    )
+    p_odo.add_argument(
+        "--descriptor-max-distance", type=float, default=0.2,
+        help="Scan Context distance acceptance threshold for --loop-descriptor",
+    )
+    p_odo.add_argument(
+        "--online", action="store_true",
+        help="streaming mode: scan-by-scan OnlineSlam (periodic robust loop closure, live "
+        "re-anchoring) instead of the offline batch pipeline",
+    )
+    p_odo.add_argument(
+        "--pipelined", action="store_true",
+        help="(--online) launch each scan's step before the previous scan's promotion is "
+        "read: records stream with one scan of latency",
+    )
+    p_odo.add_argument("--loop-every", type=int, default=8,
+                       help="(--online) refine every N keyframes")
+    p_odo.add_argument("--keyframe-translation", type=float, default=0.5)
+    p_odo.add_argument("--keyframe-angle", type=float, default=0.1)
+    p_odo.add_argument("--odometry-weight", type=float, default=1.0,
+                       help="graph information weight of odometry edges (~1/sigma^2; raise "
+                       "it when the front end tracks well)")
+    p_odo.add_argument("--save", help="checkpoint the trajectory poses (.npz)")
     p_odo.add_argument(
         "--robust-kernel", default="none",
         choices=["none", "huber", "cauchy", "welsch", "gnc_gm"],

@@ -4,10 +4,12 @@
 ``nn`` is its plain PyTorch version; ``select``, ``rigid_fit``,
 ``grid_nn``, ``ndt`` (voxel-Gaussian maps), ``covariance`` (information
 matrices), ``coarse`` (global initial guesses; its 3D scoring is the
-kernel's K2 wrapper) and ``filters`` (outlier removal) are plain PyTorch.
+kernel's K2 wrapper), ``filters`` (outlier removal) and ``descriptor``
+(Scan Context place recognition) are plain PyTorch.
 """
 
-from . import coarse, covariance, filters, fused_nn, grid_nn, ndt, nn, pallas_nn, rigid_fit, select
+from . import (coarse, covariance, descriptor, filters, fused_nn, grid_nn, ndt, nn, pallas_nn,
+               rigid_fit, select)
 
-__all__ = ["coarse", "covariance", "filters", "fused_nn", "grid_nn", "ndt", "nn", "pallas_nn",
-           "rigid_fit", "select"]
+__all__ = ["coarse", "covariance", "descriptor", "filters", "fused_nn", "grid_nn", "ndt", "nn",
+           "pallas_nn", "rigid_fit", "select"]

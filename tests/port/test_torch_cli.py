@@ -1,8 +1,9 @@
 """``python -m icp_tpu_torch.cli``: ``register``, ``odometry``, ``graph`` and
 ``methods`` against the JAX CLI, both on the CPU.  Both load scans in
 float32, so poses agree at float32 tolerance (atol 1e-5; 1e-4 through the
-float32 pose-graph solve of ``odometry --optimize``); iteration counts and
-keyframe flags are equal, and so are the ``--eval`` records (rtol 1e-4).
+float32 pose-graph solves of ``odometry --optimize`` and ``--online``);
+iteration counts, keyframe / refined / closure fields and the ``--save``
+file's layout are equal, and so are the ``--eval`` records (rtol 1e-4).
 ``graph`` reads g2o files in float64 on the CPU on both sides, so its JSON
 record agrees to 1e-8 relative."""
 
@@ -209,21 +210,82 @@ def test_odometry_scan_to_map_hint_and_ignored_flags(capsys):
 @pytest.mark.parametrize("flag", ["--optimize", "--online", "--loop-radius=2.0",
                                   "--loop-descriptor=30", "--pipelined", "--async-refine",
                                   "--odometry-weight=100", "--save=out.npz"])
-def test_odometry_refuses_slam_flags(capsys, flag):
-    """The online SLAM flags, descriptor closures, ``--save`` and ``--render``
-    come with their modules; until then argparse refuses them.  The offline
-    back end's flags (``--optimize``, ``--loop-radius``) are ported: they
-    run the pose-graph solve."""
+def test_odometry_refuses_slam_flags(capsys, tmp_path, monkeypatch, flag):
+    """The SLAM flags run: the offline back end (``--optimize``,
+    ``--loop-radius``, ``--loop-descriptor``), online SLAM (``--online``,
+    with ``--pipelined`` and ``--odometry-weight`` taking effect under it)
+    and ``--save``.  ``--async-refine`` (deferred), ``--render`` and
+    ``--aot-cache`` are still refused by argparse."""
+    monkeypatch.chdir(tmp_path)
     args = ["--platform", "cpu", "odometry", "--scans", *SWEEPS[:2], flag]
-    if flag in ("--optimize", "--loop-radius=2.0"):
-        cli.main(args)
-        err = capsys.readouterr().err
-        assert "pose-graph cost:" in err
+    if flag == "--async-refine":
+        with pytest.raises(SystemExit) as exc:
+            cli.main(args)
+        assert exc.value.code == 2
+        assert "unrecognized arguments" in capsys.readouterr().err
+        for refused in ("--render=out.png", "--aot-cache=cache"):
+            with pytest.raises(SystemExit):
+                cli.main([*args[:-1], refused])
+            assert "unrecognized arguments" in capsys.readouterr().err
         return
-    with pytest.raises(SystemExit) as exc:
-        cli.main(args)
-    assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    cli.main(args)
+    captured = capsys.readouterr()
+    assert len(captured.out.strip().splitlines()) == 2
+    if flag in ("--optimize", "--loop-radius=2.0", "--loop-descriptor=30"):
+        assert "pose-graph cost:" in captured.err
+    elif flag == "--online":
+        assert "online slam: " in captured.err
+    elif flag == "--save=out.npz":
+        assert "saved trajectory to out.npz" in captured.err
+        assert np.load("out.npz")["leaf_1"].shape == (2, 2)
+
+
+SEQ2 = sorted(glob.glob(f"{DATA}/seq2loop/sweep_*.conf"))[:10]
+ONLINE_ARGS = ["--scans", *SEQ2, "--loop-every", "2", "--loop-min-separation", "3",
+               "--odometry-weight", "100", "--loop-weight", "100", "--keyframe-translation",
+               "0.25", "--max-iterations", "50", "--translation-tolerance", "1e-4",
+               "--angle-tolerance-deg", "1e-3"]
+ONLINE = {
+    "online": ["--online", "--loop-radius", "2.0", "--robust-kernel", "gnc_gm"],
+    "online pipelined descriptor": ["--online", "--pipelined", "--loop-descriptor", "30",
+                                    "--descriptor-max-distance", "0.5"],
+    "offline descriptor": ["--loop-descriptor", "30", "--descriptor-max-distance", "0.5"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONLINE))
+def test_odometry_slam_matches_jax_cli(capsys, tmp_path, case):
+    """``odometry --online`` (serial under gnc_gm; pipelined with the
+    descriptor detector and no kernel) and the offline ``--loop-descriptor``
+    on 10 seq2loop sweeps against the JAX CLI, both in float32: the JSON
+    records (poses at 1e-4, keyframe / refined / closures exact), the stderr
+    lines, and the ``--save`` file's leaves at 1e-4."""
+    saved = {}
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        saved[name] = str(tmp_path / f"{name}.npz")
+        records, err = _odometry(main, capsys, [*ONLINE_ARGS, *ONLINE[case], "--save",
+                                                saved[name]])
+        outs[name] = records, err.replace(saved[name], "OUT")
+    (got, err), (want, jerr) = outs["port"], outs["jax"]
+    assert len(got) == len(want) == len(SEQ2)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for key in ("scan", "keyframe", "refined", "closures", "iterations"):
+            assert g.get(key) == w.get(key), key
+        np.testing.assert_allclose(g["rotation"], w["rotation"], atol=1e-4)
+        np.testing.assert_allclose(g["translation"], w["translation"], atol=1e-4)
+    lines = [line.split(":")[0] for line in err.splitlines()]
+    assert lines == [line.split(":")[0] for line in jerr.splitlines()]
+    assert err.splitlines()[0].split(" (")[0] == jerr.splitlines()[0].split(" (")[0]
+    if case.startswith("online"):
+        assert any(r["closures"] for r in got) or "closures" in err
+    assert "trajectory to OUT" in err
+    port_leaves = T.checkpoint.load_leaves(saved["port"])
+    jax_leaves = T.checkpoint.load_leaves(saved["jax"])
+    assert [a.shape for a in port_leaves] == [a.shape for a in jax_leaves]
+    for a, b in zip(port_leaves, jax_leaves):
+        np.testing.assert_allclose(a, b, atol=1e-4)
 
 
 def test_odometry_eval_pose_count_mismatch(capsys, gt_tum):
