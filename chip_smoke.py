@@ -131,6 +131,30 @@
    ``anchor=None``: the recovered anchor (the ground truth is the identity)
    and the merged keyframe ATE.
 
+12. Asynchronous refinement and the user surfaces: (a) phase 11a's stream
+   with ``OnlineSlam(async_refine=True)`` (``bench.py::run_online_slam``'s
+   ``pipelined_async`` row, and serial) as users run it, timed right after
+   11a and 11b over the first SLAM_GATED sweeps: add_scan p50 / p99 and
+   the worst scan beside 11a's over the same sweeps, corrections applied
+   mid-stream and at ``finalize``, the worker's device ms per solve (the
+   session's CUDA events), K1/K2 launches; gates: keyframe ATE <= 0.3 m,
+   a correction applied mid-stream.  Then each mode with the timing pinned (each solve waited
+   for before the next scan) over the first SLAM_GATED sweeps, in two card
+   worker processes: keyframe indices and closures equal to 11a's capture
+   and keyframe translations within 2e-3 m (a pipelined miss counts as
+   float32's only if the CPU float32 pinned run misses its own synchronous
+   run too); (b) the 240 sweeps as CSV scans through the native loader and
+   the Python parser, equal; (c) ``utils/profiling.trace`` of one main-path
+   call: the kernel launches and copies the host issued, the ATen ops and
+   the K1/K2 launches equal phase 4's pass (its device events beside, not
+   gated: CUPTI loses some of their records as the process ages), and
+   ``nn_roofline``; (d) ``cli view`` on scan1 trimmed, 20 iterations on
+   the card, the last frame within 2e-3 m of CPU float64
+   (without matplotlib, the frame stepping alone), and ``cli bench`` on
+   scans 1-3; (e) the eight examples as subprocesses at
+   ``ICP_EXAMPLES_QUICK=1``, each exiting 0 with its key line.  The pinned
+   streams and the examples run beside 11c, 11d, 12c and 12d's view.
+
 Phase 3 also runs K1 and K2 on the queen-scale pair itself,
 (1, 10720, 10720, 3) float32, timed beside its bound, the plain version and
 the library yardstick, and on phase 7's inputs (scans 1-3 at B = 256 under
@@ -404,9 +428,10 @@ def _bound(q, t, mask, coords: bool):
     return max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes", all_pairs_ms
 
 
-def _trace(torch, run) -> str:
+def _trace(torch, run, events=False):
     """One main-path run under torch.profiler: the device's busy share of the
-    run's wall time, the kernel count, and the kernels by device time."""
+    run's wall time, the kernel count, and the kernels by device time (with
+    ``events``, also the device and the host events by name)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -415,7 +440,8 @@ def _trace(torch, run) -> str:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return f"wall {wall_us / 1e3:.2f} ms; the profiler recorded no device kernels"
+        text = f"wall {wall_us / 1e3:.2f} ms; the profiler recorded no device kernels"
+        return (text, _trace_events(torch, prof)) if events else text
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, -math.inf
     for lo, hi in spans:  # union of the kernels' intervals
@@ -430,7 +456,7 @@ def _trace(torch, run) -> str:
     lines = [f"wall {wall_us / 1e3:.2f} ms, {len(kernels)} kernels, device busy "
              f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall)"]
     lines += [f"  {us / 1e3:8.3f} ms {n:6d}x  {name}" for name, (us, n) in top]
-    return "\n".join(lines)
+    return ("\n".join(lines), _trace_events(torch, prof)) if events else "\n".join(lines)
 
 
 def _ms_per_call(torch, fn, calls: int = 20) -> float:
@@ -2051,39 +2077,50 @@ DESC_T, DESC_N, DESC_RANGE, DESC_ROWS, DESC_REPS = 1024, 1024, 30.0, 64, 5
 RELOC_SWEEPS = tuple(range(LAP, 2 * LAP, 15))  # 8 lap-2 sweeps
 
 
-def _slam_stream(slam, icp, clouds, mode, dev, record=None, capture=None):
+def _slam_stream(slam, icp, clouds, mode, dev, record=None, capture=None, async_refine=False):
     """One OnlineSlam pass of phase 11's configuration over ``clouds``, then
     ``finalize``: (session, keyframe scan indices, (scan, closures) of each
-    scan whose refinement solved, and the capture).  ``record`` collects
-    each add_scan's seconds; after ``capture`` scans the keyframe indices
-    so far and the keyframe translations are captured (pipelined: the
-    scans materialized by then)."""
+    scan whose refinement solved or, with ``async_refine``, whose update
+    applied a solve, the capture, and whether a solve was outstanding at
+    ``finalize``).  ``record`` collects each add_scan's seconds; after
+    ``capture`` scans the keyframe indices so far, the keyframe translations
+    and the closure count are captured (pipelined: the scans materialized by
+    then).  ``async_refine="pinned"`` waits for each solve before the next
+    scan and applies an outstanding one before the capture."""
     online = slam.OnlineSlam(icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9)),
                              icp.DriverConfig(**SLAM_CFG), pipelined=mode == "pipelined",
-                             device=dev, **SLAM_KW)
+                             async_refine=bool(async_refine), device=dev, **SLAM_KW)
+    pinned = async_refine == "pinned"
     updates, captured = [], None
     for scan in clouds:
+        if pinned and online._async_solve is not None:
+            online._async_solve.block_until_ready()
         t0 = time.perf_counter()
         u = online.add_scan(scan)
         if record is not None:
             record.append(time.perf_counter() - t0)
         updates.append(u)
         if len(updates) == capture:
+            if pinned:
+                online._maybe_apply_async(force=True)
             done = [v for v in updates if v is not None]
             captured = ([t for t, v in enumerate(done) if v.is_keyframe],
-                        online.keyframe_poses.translation.double().cpu().numpy())
+                        online.keyframe_poses.translation.double().cpu().numpy(),
+                        len(online._loop_edges))
     updates = [u for u in updates + [online.flush()] if u is not None]
+    outstanding = online._async_solve is not None
     online.finalize()
     keyframes = [t for t, u in enumerate(updates) if u.is_keyframe]
     refined = [(t, u.num_closures) for t, u in enumerate(updates) if u.refined]
-    return online, keyframes, refined, captured
+    return online, keyframes, refined, captured, outstanding
 
 
-def _phase11_reference(mode: str, dtype: str, ulp: int = 0) -> dict:
+def _phase11_reference(mode: str, dtype: str, ulp: int = 0, async_refine=False) -> dict:
     """Phase 11a's stream on the CPU over the first SLAM_GATED sweeps (a
     worker process's job, one thread): the keyframe scan indices and
     translations there.  ``ulp`` = +-1 moves every float32 coordinate one
-    ulp up or down first (the float32 rule of phase 8e)."""
+    ulp up or down first (the float32 rule of phase 8e); ``async_refine``
+    ("pinned") is phase 12a's pinned asynchronous stream."""
     import numpy as np
     import torch
 
@@ -2098,10 +2135,10 @@ def _phase11_reference(mode: str, dtype: str, ulp: int = 0) -> dict:
         sweeps = [np.nextafter(a.astype(np.float32), np.float32(ulp * np.inf)) for a in sweeps]
     clouds = [icp.from_points(a, capacity=CAPACITY, dtype=getattr(torch, dtype), device="cpu")
               for a in sweeps]
-    online, _, _, (keyframes, translation) = _slam_stream(slam, icp, clouds, mode, "cpu",
-                                                          capture=SLAM_GATED)
-    return {"keyframes": keyframes, "translation": translation,
-            "closures": len(online._loop_edges), "seconds": time.perf_counter() - t0}
+    _, _, _, (keyframes, translation, closures), _ = _slam_stream(
+        slam, icp, clouds, mode, "cpu", capture=SLAM_GATED, async_refine=async_refine)
+    return {"keyframes": keyframes, "translation": translation, "closures": closures,
+            "seconds": time.perf_counter() - t0}
 
 
 def _slam_float32_gate(label: str, got, cpu: dict, float32_runs) -> str:
@@ -2162,16 +2199,18 @@ def _kf_ate(icp, torch, np, ev, poses, gt, scans) -> float:
                         truth, align="first").mean)
 
 
-def _slam_streams(torch, np, icp, dev, sweeps, gt) -> tuple[dict, dict, dict]:
+def _slam_streams(torch, np, icp, dev, sweeps, gt) -> tuple[dict, dict, dict, dict]:
     """Phase 11a on the card: the 240-sweep stream, serial and pipelined;
     returns the launches of each path, each mode's last session with its
-    keyframe scan indices, and what it captured after SLAM_GATED sweeps."""
+    keyframe scan indices, what it captured after SLAM_GATED sweeps, and
+    its keyframe ATE, add_scan seconds and refining scans (phase 12a's
+    comparison)."""
     from icp_tpu_torch import eval as ev
     from icp_tpu_torch import slam
 
     clouds = [icp.from_points(a, capacity=CAPACITY, dtype=torch.float32, device=dev)
               for a in sweeps]
-    paths, sessions, captured = {}, {}, {}
+    paths, sessions, captured, stats = {}, {}, {}, {}
     _warm_solves(torch, icp, dev)
     for mode in SLAM_MODES:
         _slam_stream(slam, icp, clouds[:SLAM_WARMUP_SCANS], mode, dev)  # warm-up
@@ -2180,7 +2219,7 @@ def _slam_streams(torch, np, icp, dev, sweeps, gt) -> tuple[dict, dict, dict]:
             times = []
             if rep == 0:
                 _reset_launches()
-            online, keyframes, refined, captured[mode] = _slam_stream(
+            online, keyframes, refined, captured[mode], _ = _slam_stream(
                 slam, icp, clouds, mode, dev, times, capture=SLAM_GATED)
             torch.cuda.synchronize()
             if rep == 0:
@@ -2202,6 +2241,7 @@ def _slam_streams(torch, np, icp, dev, sweeps, gt) -> tuple[dict, dict, dict]:
         if not accepting or accepting[0] >= SLAM_FIRST_CLOSURE_BEFORE:
             raise AssertionError(f"slam {mode}: no closure accepted before scan "
                                  f"{SLAM_FIRST_CLOSURE_BEFORE} (refines {refined[:6]})")
+        stats[mode] = {"ate": ate, "times": times, "refined": refined}
         _say("slam", f"{mode}, {len(clouds)} seq2loop sweeps at {CAPACITY}: add_scan p50 "
                      f"{np.median(p50):.2f} ms, p99 {np.median(p99):.2f} ms (median of "
                      f"{SLAM_TIMED} passes: p50 {', '.join(f'{x:.2f}' for x in p50)}; p99 "
@@ -2211,7 +2251,7 @@ def _slam_streams(torch, np, icp, dev, sweeps, gt) -> tuple[dict, dict, dict]:
                      f"{len(online._loop_edges)} closures, {len(refined)} refining solves, the "
                      f"first accepting at scan {accepting[0]}; keyframe ATE {ate:.4f} m (gate "
                      f"{SLAM_ATE_M}); launches {paths[f'slam {mode}']}")
-    return paths, sessions, captured
+    return paths, sessions, captured, stats
 
 
 def _slam_cpu_check(captured, slam_refs) -> None:
@@ -2222,7 +2262,7 @@ def _slam_cpu_check(captured, slam_refs) -> None:
     only if a CPU float32 run misses too."""
     pool, refs = slam_refs
     for mode in SLAM_MODES:
-        keyframes, got = captured[mode]
+        keyframes, got, _ = captured[mode]
         cpu = refs[mode, "float64"].get()
 
         def float32_run(ulp, mode=mode):
@@ -2387,9 +2427,398 @@ def _merge_laps(torch, np, icp, dev, sweeps, gt) -> dict:
     return {"merge_sessions": launches}
 
 
-def _phase_slam(torch, np, icp, dev, slam_refs) -> dict:
-    """Phase 11: online SLAM and place recognition; returns the launches of
-    each path."""
+
+# Phase 12: asynchronous refinement and the user surfaces.  (a) phase 11a's
+# stream with OnlineSlam(async_refine=True), bench.py::run_online_slam's
+# pipelined_async row (:1297-1320; its stall is the worst scan, :1314-1318),
+# serial and pipelined over the first SLAM_GATED sweeps, timed as users run
+# it and then with the timing pinned (each solve waited for before the next
+# scan), against 11a's synchronous captures; (b) the native CSV loader; (c) utils/profiling's
+# trace of the main path; (d) cli view and cli bench; (e) the examples.
+VIEW_ITERATIONS = 20
+BENCH_METHODS = ("vanilla", "trimmed", "feature_aware")  # the reference's 2D methods
+EXAMPLES = {"register_pair": "translation:", "serving_demo": "max pose error",
+            "slam_pipeline": "optimized end-pose drift",
+            "place_recognition": "descriptor search", "odometry_sequence": "optimized ATE",
+            "odometry_sequence_3d": "after closure", "online_slam": "stream done",
+            "multi_session_merge": "merged sessions:"}
+EXAMPLE_TIMEOUT_S = 400
+SCRATCH = os.path.join(REPO, "build", "chip_smoke")  # gitignored
+
+
+def _start_examples(dev) -> dict:
+    """Phase 12e: every example as ``python -m icp_tpu_torch.examples.NAME``
+    at ICP_EXAMPLES_QUICK=1 on the card, started together; returns the
+    processes and their output files."""
+    out_dir = os.path.join(SCRATCH, "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO, ICP_EXAMPLES_QUICK="1", ICP_EXAMPLES_OUT=out_dir)
+    env.pop("ICP_EXAMPLES_CPU", None)
+    procs = {}
+    for name in EXAMPLES:
+        log = open(os.path.join(out_dir, f"{name}.log"), "w+")
+        procs[name] = (subprocess.Popen([sys.executable, "-m", f"icp_tpu_torch.examples.{name}"],
+                                        stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO),
+                       log, time.perf_counter())
+    return procs
+
+
+def _finish_examples(procs) -> None:
+    """Wait for phase 12e's processes; each must exit 0 with its key line."""
+    lines, bad = [], []
+    for name, (proc, log, t0) in procs.items():
+        try:
+            code = proc.wait(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            code = "timeout"
+        log.seek(0)
+        text = log.read()
+        log.close()
+        key = [line for line in text.splitlines() if EXAMPLES[name] in line]
+        lines.append(f"{name}: exit {code}, " + (key[-1].strip() if key else "no key line"))
+        if code != 0 or not key:
+            bad.append(f"{name} (exit {code}): {text[-1500:]}")
+    _say("examples", f"{len(EXAMPLES)} examples at ICP_EXAMPLES_QUICK=1 on the card: "
+                     + "; ".join(lines))
+    if bad:
+        raise AssertionError("examples failed: " + " | ".join(bad))
+
+
+def _pinned_gate(mode: str, got, want, cpu32=None) -> str:
+    """Phase 12a's pinned stream against 11a's synchronous capture: keyframe
+    indices and closures equal, keyframe translations within
+    POSE_AGREEMENT_TOL_M.  A pipelined miss counts as float32's only when
+    the CPU float32 pinned run (``cpu32()``: (pinned, synchronous)) misses
+    its own synchronous run too."""
+    import numpy as np
+
+    (kf_g, tr_g, cl_g), (kf_w, tr_w, cl_w) = got, want
+    same = kf_g == kf_w and cl_g == cl_w
+    dev = (float(np.linalg.norm(tr_g - tr_w, axis=-1).max()) if tr_g.shape == tr_w.shape
+           else math.inf)
+    line = (f"{mode} pinned, {SLAM_GATED} sweeps, vs 11a's synchronous run: keyframe indices "
+            f"{'equal' if kf_g == kf_w else f'differ ({len(kf_g)} vs {len(kf_w)})'}, "
+            f"closures {cl_g} vs {cl_w}, max |dt| {dev:.4e} m (gate {POSE_AGREEMENT_TOL_M})")
+    if same and dev <= POSE_AGREEMENT_TOL_M:
+        return line
+    if mode != "pipelined":
+        raise AssertionError(f"slam {mode} pinned: {line}")
+    pinned, sync = cpu32()
+    dev32 = (float(np.linalg.norm(pinned["translation"] - sync["translation"], axis=-1).max())
+             if pinned["translation"].shape == sync["translation"].shape else math.inf)
+    same32 = pinned["keyframes"] == sync["keyframes"] and pinned["closures"] == sync["closures"]
+    line += (f"; CPU f32 pinned vs CPU f32 synchronous: decisions "
+             f"{'equal' if same32 else 'differ'}, max |dt| {dev32:.4e} m")
+    if (not same and not same32) or (same and dev32 > POSE_AGREEMENT_TOL_M):
+        return line + ": the CPU float32 run misses too, float32's"
+    raise AssertionError(f"slam {mode} pinned: {line}")
+
+
+def _stream_stats(np, times, refined, lag: int, scans: int) -> dict:
+    """add_scan p50 and p99 (the first scan only promotes) and the stall over
+    the first ``scans`` scans: the slowest scan that ran a refinement's solve
+    (``refined``'s scans, ``lag`` scans later) or, asynchronous (``refined``
+    None), the slowest scan (``bench.py:1314-1318``), in ms."""
+    ms = np.asarray(times[1:scans]) * 1e3
+    if refined is None:
+        stall = float(ms.max())
+    else:
+        stall = max((times[t + lag] for t, _ in refined if t + lag < scans), default=0.0) * 1e3
+    return {"p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99)),
+            "stall": stall}
+
+
+def _async_streams(torch, np, icp, dev, sweeps, gt, phase11) -> dict:
+    """Phase 12a, timed: the asynchronous streams as users run them (no part
+    of the session replaced), serial and pipelined over the first
+    SLAM_GATED sweeps (the script's time), each beside 11a's synchronous
+    numbers over the same sweeps and its capture there; the worker's device
+    ms per solve from the CUDA events the session records around each
+    solve.  Returns the launches of each stream."""
+    from icp_tpu_torch import eval as ev
+    from icp_tpu_torch import slam
+
+    scans = SLAM_GATED
+    clouds = [icp.from_points(a, capacity=CAPACITY, dtype=torch.float32, device=dev)
+              for a in sweeps[:scans]]
+    paths = {}
+    for mode in SLAM_MODES:
+        times = []
+        _reset_launches()
+        online, keyframes, applied, _, outstanding = _slam_stream(
+            slam, icp, clouds, mode, dev, times, async_refine=True)
+        torch.cuda.synchronize()
+        paths[f"slam {mode} async"] = _read_launches()
+        solve_ms = [start.elapsed_time(end) for start, end in online._solve_events]
+        got = _stream_stats(np, times, None, 0, scans)
+        sync = phase11["stats"][mode]
+        want = _stream_stats(np, sync["times"], sync["refined"], int(mode == "pipelined"), scans)
+        ate = _kf_ate(icp, torch, np, ev, online.keyframe_poses, gt, keyframes)
+        mid = [t for t, _ in applied if t < scans - 1]
+        sync_kf, kf_s, sync_closures = phase11["captured"][mode]  # after SLAM_GATED sweeps
+        kf_a = online.keyframe_poses.translation.double().cpu().numpy()
+        if kf_a.shape == kf_s.shape:
+            deviation = (f"max keyframe |dt| from 11a "
+                         f"{np.linalg.norm(kf_a - kf_s, axis=-1).max():.4e} m")
+        else:
+            deviation = f"{len(kf_a)} keyframes vs 11a's {len(kf_s)}: not comparable"
+        _say("slam-async", f"{mode}, {scans} sweeps, async_refine=True (11a synchronous over "
+                           f"the same sweeps in brackets): add_scan p50 {got['p50']:.2f} ms "
+                           f"({want['p50']:.2f}), p99 {got['p99']:.2f} ms ({want['p99']:.2f}), "
+                           f"worst scan {got['stall']:.2f} ms (refine stall "
+                           f"{want['stall']:.2f}); after finalize {len(keyframes)} keyframes "
+                           f"and {len(online._loop_edges)} closures (11a's capture at sweep "
+                           f"{scans}, before finalize: {len(sync_kf)} and {sync_closures}); "
+                           f"corrections "
+                           f"applied mid-stream {len(mid)} (first at scan "
+                           f"{mid[0] if mid else None}), at finalize {int(outstanding) + 1} (an "
+                           f"outstanding solve: {outstanding}; finalize's own); worker solve "
+                           f"device ms {', '.join(f'{x:.1f}' for x in solve_ms)}; keyframe ATE "
+                           f"{ate:.4f} m ({sync['ate']:.4f} over 240 sweeps; gate {SLAM_ATE_M}); "
+                           f"{deviation} (not gated); launches {paths[f'slam {mode} async']}")
+        if not ate <= SLAM_ATE_M:
+            raise AssertionError(f"slam {mode} async: keyframe ATE {ate} > {SLAM_ATE_M} m")
+        if not mid:
+            raise AssertionError(f"slam {mode} async: no correction applied mid-stream")
+    return paths
+
+
+def _pinned_stream(mode: str) -> dict:
+    """Phase 12a's pinned stream on the card over the first SLAM_GATED
+    sweeps (a card worker process's job, beside the untimed rest of phases
+    11 and 12): the keyframe scan indices, translations and closures
+    there."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import slam
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    clouds = [icp.from_points(a, capacity=CAPACITY, dtype=torch.float32, device=dev)
+              for a in _seq2loop(np)[0][:SLAM_GATED]]
+    _, _, _, (keyframes, translation, closures), _ = _slam_stream(
+        slam, icp, clouds, mode, dev, capture=SLAM_GATED, async_refine="pinned")
+    return {"keyframes": keyframes, "translation": translation, "closures": closures,
+            "seconds": time.perf_counter() - t0}
+
+
+def _pinned_check(pinned: dict, captured: dict, slam_refs) -> None:
+    """Phase 12a, pinned: the check that the asynchronous handoff (the
+    corrected pipelined one too) equals the synchronous re-anchor."""
+    pool, refs = slam_refs
+    for mode in SLAM_MODES:
+        got = pinned[mode].get()
+
+        def cpu32(mode=mode):
+            if (mode, "float32", 0) not in refs:
+                refs[mode, "float32", 0] = pool.apply_async(_phase11_reference, (mode, "float32"))
+            if (mode, "float32", 0, "pinned") not in refs:
+                refs[mode, "float32", 0, "pinned"] = pool.apply_async(
+                    _phase11_reference, (mode, "float32", 0, "pinned"))
+            return refs[mode, "float32", 0, "pinned"].get(), refs[mode, "float32", 0].get()
+
+        line = _pinned_gate(mode, (got["keyframes"], got["translation"], got["closures"]),
+                            captured[mode], cpu32)
+        _say("slam-pinned", f"{line}; streamed in {got['seconds']:.1f} s in a card worker")
+
+
+def _native_loader(torch, np, sweeps, dev, native_build) -> None:
+    """Phase 12b: the 240 seq2loop sweeps as CSV scans at capacity 1,024,
+    through the native threaded loader and through the Python path.
+    ``native_build``: (the library was in the checkout, seconds to load or
+    build it at the start)."""
+    from icp_tpu_torch.io import scan_csv
+    from icp_tpu_torch.utils import native
+
+    out = os.path.join(SCRATCH, "seq2loop_csv")
+    os.makedirs(out, exist_ok=True)
+    paths = []
+    for i, pts in enumerate(sweeps):
+        path = os.path.join(out, f"scan_{i:03d}.csv")
+        with open(path, "w") as f:
+            f.write("\n".join(f"{float(x)!r},{float(y)!r}" for x, y in pts) + "\n")
+        paths.append(path)
+    had, load_s = native_build
+    if native.native_lib() is None:
+        raise AssertionError("the native library did not build or load (g++ and "
+                             "native/src/icptpu_native.cpp)")
+
+    def load():
+        t0 = time.perf_counter()
+        cloud = scan_csv.parse_lidar_scan_batch(paths, capacity=CAPACITY, device=dev)
+        torch.cuda.synchronize()
+        return cloud, (time.perf_counter() - t0) * 1e3
+
+    fast, fast_ms = load()
+    saved = native._LIB, native._TRIED
+    native._LIB, native._TRIED = None, True  # the library absent: the Python path
+    try:
+        slow, slow_ms = load()
+    finally:
+        native._LIB, native._TRIED = saved
+    if not (torch.equal(fast.points, slow.points) and torch.equal(fast.count, slow.count)):
+        raise AssertionError("native loader: arrays or counts differ from the Python path")
+    _say("native", f"native/libicptpu.so {'loaded' if had else 'built'} in {load_s:.2f} s; "
+                   f"{len(paths)} CSV scans at capacity {CAPACITY} onto the card: native "
+                   f"{fast_ms:.1f} ms, Python {slow_ms:.1f} ms; points and counts equal "
+                   f"({int(fast.count.sum())} points)")
+
+
+def _device_events(torch, prof) -> collections.Counter:
+    """Device events (kernels and copies) of a finished torch.profiler run,
+    by name."""
+    return collections.Counter(e.name for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _trace_events(torch, prof) -> tuple[collections.Counter, collections.Counter]:
+    """(device events, host events) of a finished torch.profiler run, by
+    name: the host's are the ATen ops and the CUDA runtime calls."""
+    host = collections.Counter(e.name for e in prof.events()
+                               if e.device_type != torch.autograd.DeviceType.CUDA)
+    return _device_events(torch, prof), host
+
+
+# The CUDA runtime calls that issue device work: kernel launches and copies.
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+
+
+def _issued(host: collections.Counter) -> tuple[collections.Counter, collections.Counter]:
+    """(ATen ops, runtime calls that issue device work) of ``host``; the other
+    runtime calls (the caching allocator's cudaMalloc, cudaStreamIsCapturing
+    and cudaEventQuery, synchronizations) are left out: they follow the
+    allocator's state, not the path's work."""
+    ops = collections.Counter({n: c for n, c in host.items() if not n.startswith("cu")})
+    issued = collections.Counter({n: c for n, c in host.items() if n.startswith(LAUNCH_CALLS)})
+    return ops, issued
+
+
+def _profiling_trace(torch, icp, run, main: tuple, fine: dict) -> None:
+    """Phase 12c: utils/profiling.trace of one main-path call against phase
+    4's pass over the same call (``main``: its device events, its host events
+    and K1/K2 launches per call).  Gates: the kernel launches and copies the
+    host issued, the ATen ops and the K1/K2 launches equal phase 4's.  The
+    device events are printed beside, not gated: CUPTI loses some of their
+    records as the process ages (PERF.md §6), though every launch is on
+    the host's record.  nn_roofline at the fine shape beside phase 3's
+    bound."""
+    from icp_tpu_torch.utils import profiling
+
+    main_device, main_host, main_launches = main
+    out = os.path.join(SCRATCH, "trace")
+    _reset_launches()
+    with profiling.trace(out) as prof:
+        run()
+    launches = _read_launches()
+    device, host = _trace_events(torch, prof)
+    (ops, issued), (main_ops, main_issued) = _issued(host), _issued(main_host)
+    size = os.path.getsize(os.path.join(out, "trace.json"))
+    roof = profiling.nn_roofline(CAPACITY, CAPACITY, 2, BATCH)
+    flop_ms = roof["flops"] / PEAK_F32_FLOPS * 1e3
+    byte_ms = roof["bytes"] / PEAK_HBM_BYTES * 1e3
+    lost = sum(main_device.values()) - sum(device.values())
+    _say("profiling", f"trace of one main-path call: {sum(issued.values())} kernel launches "
+                      f"and copies issued (phase 4: {sum(main_issued.values())}), "
+                      f"{sum(ops.values())} ATen ops (phase 4: {sum(main_ops.values())}), "
+                      f"launches {launches} (phase 4: {main_launches}); device events recorded "
+                      f"{sum(device.values())} (phase 4: {sum(main_device.values())}, {lost} "
+                      f"fewer: records CUPTI lost, not gated), trace.json "
+                      f"{size / 2**20:.1f} MiB; nn_roofline "
+                      f"({BATCH}, {CAPACITY}, {CAPACITY}, 2): {roof['flops']:.4g} flops, "
+                      f"{roof['bytes']:.4g} bytes, {roof['intensity_flops_per_byte']:.1f} "
+                      f"flops/byte, {max(flop_ms, byte_ms):.4f} ms at the peaks (phase 3's "
+                      f"bound for K1 {fine['K1_bound']:.4f} ms, its 3D - 1 flops per valid pair)")
+    if issued != main_issued or ops != main_ops or launches != main_launches:
+        moved = [(n, (main_issued + main_ops)[n], (issued + ops)[n])
+                 for n in sorted(set(issued + ops) | set(main_issued + main_ops))
+                 if (issued + ops)[n] != (main_issued + main_ops)[n]]
+        raise AssertionError(f"profiling.trace: the host issued other work than phase 4's "
+                             f"pass: launches {launches} vs {main_launches}; {moved[:10]}")
+
+
+def _cli_view(torch, np, icp, dev) -> dict:
+    """Phase 12d: cli view on scan1 trimmed for VIEW_ITERATIONS iterations on
+    the card against CPU float64."""
+    from icp_tpu_torch import cli, vis
+
+    data = os.path.join(REPO, "ex_data")
+    scan1 = [f"{data}/scan1/first.csv", f"{data}/scan1/second.csv"]
+    a64, b64 = (icp.parse_lidar_scan(p, device="cpu") for p in scan1)
+    *_, (_, want) = vis.registration_frames(icp.from_method("trimmed", 2), a64, b64,
+                                            icp.identity(2, device="cpu"), VIEW_ITERATIONS)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        matplotlib = None
+    _reset_launches()
+    t0 = time.perf_counter()
+    if matplotlib is None:
+        _say("view", "matplotlib cannot be imported here: no frame is drawn; the frame-dump "
+                     "loop (vis.registration_frames, the stepping cli view runs) is checked")
+        a, b = (icp.parse_lidar_scan(p, dtype=torch.float32, device=dev) for p in scan1)
+        *_, (_, last) = vis.registration_frames(
+            icp.from_method("trimmed", 2), a, b,
+            icp.identity(2, dtype=torch.float32, device=dev), VIEW_ITERATIONS)
+        got, frames = last.translation, 0
+    else:
+        buf = io.StringIO()
+        frames_dir = os.path.join(SCRATCH, "view")
+        with contextlib.redirect_stdout(buf):
+            cli.main(["view", "-S", scan1[0], "-D", scan1[1], "-m", "trimmed", "-l",
+                      "--iterations", str(VIEW_ITERATIONS), "--out", frames_dir])
+        dumps = [line for line in buf.getvalue().splitlines() if line.startswith("iteration=")]
+        got = np.asarray(json.loads(dumps[-1].split(" t=", 1)[1]))
+        frames = len([f for f in os.listdir(frames_dir) if f.endswith(".png")])
+    torch.cuda.synchronize()
+    view_s, launches = time.perf_counter() - t0, _read_launches()
+    dt = float(np.linalg.norm(got - want.translation))
+    _say("view", f"cli view scan1 trimmed, {VIEW_ITERATIONS} iterations on the card: {frames} "
+                 f"frames in {view_s:.2f} s; last dump t {np.round(got, 6).tolist()} vs CPU "
+                 f"f64 {np.round(want.translation, 6).tolist()}: |dt| {dt:.3e} m (gate "
+                 f"{POSE_AGREEMENT_TOL_M}); launches {launches}")
+    if not dt <= POSE_AGREEMENT_TOL_M:
+        raise AssertionError(f"cli view: last frame {dt} m from CPU f64")
+    return {f"cli view ({VIEW_ITERATIONS} frames)": launches}
+
+
+def _cli_bench() -> None:
+    """Phase 12d: cli bench on scans 1-3."""
+    from icp_tpu_torch import cli
+
+    data = os.path.join(REPO, "ex_data")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["bench", "--data-dir", data, "--scans", "1", "2", "3", "--invocations", "3",
+                  "--batch", "256", "--methods", *BENCH_METHODS])
+    cells, cell = [], {}
+    for line in buf.getvalue().splitlines():
+        if line.startswith("ICP method:"):
+            cell = {"name": line.split(": ", 1)[1]}
+            cells.append(cell)
+        elif ": " in line:
+            key, value = line.lstrip("* ").split(": ", 1)
+            cell[key] = value
+    _say("bench", f"cli bench, scans 1-3, 3 invocations, --batch 256, "
+                  f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+                      f"{c['name']}: mean iterations {c['Mean iterations']}, mean cost "
+                      f"{c['Mean cost']}, {c['Average time per invocation']} per invocation, "
+                      f"{c.get('Batched throughput (256 pairs/invocation)')}" for c in cells))
+    if len(cells) != 3 * len(BENCH_METHODS):
+        raise AssertionError(f"cli bench printed {len(cells)} cells")
+
+
+def _phase_slam_surfaces(torch, np, icp, dev, slam_refs, card_pool, run, main, fine,
+                         native_build) -> dict:
+    """Phases 11 and 12, interleaved so that the timed parts run alone: 11a,
+    11b, 12a timed, 12b, 12d bench; then the pinned streams (two card worker
+    processes) and the examples start, beside 11c, 11d, 12c and 12d view.
+    Returns the launches of each path."""
     sweeps, gt, _ = _seq2loop(np)
     seconds, t0 = {}, time.perf_counter()
 
@@ -2398,15 +2827,39 @@ def _phase_slam(torch, np, icp, dev, slam_refs) -> dict:
         seconds[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    paths, sessions, captured = _slam_streams(torch, np, icp, dev, sweeps, gt)
+    paths, sessions, captured, stats = _slam_streams(torch, np, icp, dev, sweeps, gt)
     _slam_cpu_check(captured, slam_refs)
-    done("a")
+    done("11a")
     paths.update(_descriptor_shapes(torch, np, dev))
-    done("b")
-    paths.update(_relocalize_laps(torch, np, icp, dev, sessions["serial"], sweeps, gt))
-    done("c")
-    paths.update(_merge_laps(torch, np, icp, dev, sweeps, gt))
-    done("d")
+    done("11b")
+    phase11 = {"stats": stats, "captured": captured}
+    paths.update(_async_streams(torch, np, icp, dev, sweeps, gt, phase11))
+    done("12a timed")
+    _native_loader(torch, np, sweeps, dev, native_build)
+    done("12b")
+    _cli_bench()
+    done("12d bench")
+    pinned = {mode: card_pool.apply_async(_pinned_stream, (mode,)) for mode in SLAM_MODES}
+    procs = _start_examples(dev)
+    try:
+        paths.update(_relocalize_laps(torch, np, icp, dev, sessions["serial"], sweeps, gt))
+        done("11c")
+        paths.update(_merge_laps(torch, np, icp, dev, sweeps, gt))
+        done("11d")
+        _profiling_trace(torch, icp, run, main, fine)
+        done("12c")
+        paths.update(_cli_view(torch, np, icp, dev))
+        done("12d view")
+        _pinned_check(pinned, captured, slam_refs)
+        done("12a pinned (the wait)")
+        _finish_examples(procs)
+        done("12e (the wait)")
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
     _say("slam-seconds", ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     torch.cuda.empty_cache()
     return paths
@@ -2421,6 +2874,14 @@ def main() -> int:
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     sys.path.insert(0, REPO)
     import icp_tpu_torch  # noqa: F401  (fails here without the program)
+    from icp_tpu_torch.utils import native
+
+    # The native CSV loader, built once here (g++) before any worker could
+    # race to build it: phase 12b reads whether it was in the checkout.
+    native_had = os.path.exists(native._lib_path())
+    t0 = time.perf_counter()
+    native.native_lib()
+    native_build = (native_had, time.perf_counter() - t0)
 
     # The workers run at the lowest priority, so that the host-bound timings
     # of phases 3-9 keep the cores they need.
@@ -2429,6 +2890,9 @@ def main() -> int:
     # Phase 11's CPU streams take minutes each: a pool of their own (one
     # thread a worker), so that phases 9 and 10 never wait behind them.
     slam_pool = context.Pool(3, initializer=os.nice, initargs=(19,))
+    # Phase 12a's pinned streams: two processes on the card, at the normal
+    # priority, run beside the untimed rest of phases 11 and 12.
+    card_pool = context.Pool(len(SLAM_MODES))
     try:
         refs = {task: pool.apply_async(_phase9_reference, (task,)) for task in REFERENCE_TASKS}
         for name, *_ in G2O_CELLS:
@@ -2444,14 +2908,17 @@ def main() -> int:
         # miss needs them.
         slam_refs["pipelined", "float32", 0] = slam_pool.apply_async(
             _phase11_reference, ("pipelined", "float32"))
-        return _phases(refs, pool, (slam_pool, slam_refs))
+        # Phase 12a's float32 rule reads the pinned pipelined stream's twin.
+        slam_refs["pipelined", "float32", 0, "pinned"] = slam_pool.apply_async(
+            _phase11_reference, ("pipelined", "float32", 0, "pinned"))
+        return _phases(refs, pool, (slam_pool, slam_refs), card_pool, native_build)
     finally:
-        for p in (pool, slam_pool):
+        for p in (pool, slam_pool, card_pool):
             p.terminate()
             p.join()
 
 
-def _phases(refs, pool, slam_refs) -> int:
+def _phases(refs, pool, slam_refs, card_pool, native_build) -> int:
     import numpy as np
     import torch
 
@@ -2566,7 +3033,8 @@ def _phases(refs, pool, slam_refs) -> int:
         f"mean cost {float(result.cost.mean()):.6f}, launches {launches}",
     )
 
-    _say("trace", _trace(torch, run))
+    trace, (main_device, main_host) = _trace(torch, run, events=True)
+    _say("trace", trace)
     _say("steps", _iterate_steps(torch, icp, source, target, guess))
     phase_done("4 main path")
 
@@ -2596,7 +3064,7 @@ def _phases(refs, pool, slam_refs) -> int:
     )
     if not max_dt <= POSE_AGREEMENT_TOL_M:
         raise AssertionError(f"pose agreement failed: {max_dt} > {POSE_AGREEMENT_TOL_M}")
-    del source, target, result, rot, trans
+    del result, rot, trans  # source and target stay for phase 12c's trace of run()
     torch.cuda.empty_cache()
     phase_done("5 pose")
 
@@ -2618,8 +3086,10 @@ def _phases(refs, pool, slam_refs) -> int:
         errs[k] = max(errs[k], closure_err)
     exact_cases.append(closure_label)
     phase_done("10 back end")
-    paths.update(_phase_slam(torch, np, icp, dev, slam_refs))
-    phase_done("11 slam")
+    paths.update(_phase_slam_surfaces(torch, np, icp, dev, slam_refs, card_pool, run,
+                                      (main_device, main_host, launches), timed["fine"],
+                                      native_build))
+    phase_done("11-12 slam and surfaces")
     _say("seconds", ", ".join(f"phase {k} {v}" for k, v in phase_s.items()))
 
     def entry(k, name, replaces):

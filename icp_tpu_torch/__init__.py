@@ -15,9 +15,13 @@ kernels and GNC, two-pass robust solves, loop candidates and closure
 registration; ``robustness``: the outlier-injection protocol; g2o files in
 ``io``), Scan Context place recognition (``ops.descriptor``), online and
 offline SLAM (``slam``: ``OnlineSlam``, ``run_slam``, ``merge_sessions``,
-``relocalize``), checkpoints (``checkpoint``, ``resilient``), the
-scan/sweep/PLY readers and a CLI (``python -m icp_tpu_torch.cli``:
-``register``, ``odometry``, ``graph``).  The exact masked 1-NN
+``relocalize``; ``OnlineSlam(async_refine=True)`` solves on a worker
+thread), checkpoints (``checkpoint``, ``resilient``), offline rendering
+(``vis``), the profiler and NVTX ranges (``utils.profiling``), the
+scan/sweep/PLY readers (with the native CSV loader, ``utils.native``), a CLI
+(``python -m icp_tpu_torch.cli``: ``register``, ``view``, ``bench``,
+``odometry``, ``graph``) and examples (``python -m
+icp_tpu_torch.examples.NAME``).  The exact masked 1-NN
 correspondence is a CUDA kernel for Hopper (``csrc/nn.cu``, built with
 ``nvcc`` at first use).  The JAX package is the reference each module is
 tested against.  The entry points put their tensors on the card unless the

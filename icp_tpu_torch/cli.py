@@ -1,8 +1,16 @@
 """Command-line interface: ``python -m icp_tpu_torch.cli``.
 
-Port of the ``register``, ``odometry`` and ``methods`` subcommands of
-:mod:`icp_tpu.cli`:
+Port of :mod:`icp_tpu.cli`:
 
+* ``view`` — the SDL GUI driver (``vis/main.cpp:75-153``) as an offline frame
+  renderer: one PNG per iteration (``--every``), ``-l`` dumps each frame's
+  iteration, cost and translation, ``--view-conf`` reads the reference's
+  display conf, ``--animate`` assembles a GIF or an HTML player.
+* ``bench`` — the reference's benchmark report (``bench/bench.cpp:108-142``):
+  every registered 2D method (or ``--methods``) on scans 1-3, ``--invocations``
+  calls each, the cost and iteration statistics and the time per invocation
+  and per iteration; ``--batch N`` adds the batched throughput.  The clock is
+  read after the card's queued work has finished.
 * ``register`` — one-shot registration of a 2D scan pair (CSV, or a ``.conf``
   polar sweep) or, with ``--ply``, a 3D PLY pair, under the driver flags;
   ``--sor`` filters outliers from both clouds first, ``--coarse`` seeds the
@@ -16,10 +24,12 @@ Port of the ``register``, ``odometry`` and ``methods`` subcommands of
   appearance, registered in one batch, then a pose-graph solve
   (``--robust-kernel``, ``--scale-passes``, ``--closure-information``);
   ``--online`` streams the scans through ``slam.OnlineSlam`` instead
-  (``--pipelined``, ``--loop-every``, ``--keyframe-translation`` /
-  ``--keyframe-angle``, ``--odometry-weight``); one JSON record per scan,
-  with ``--eval GT_TUM`` one more with the ATE and RPE against a TUM ground
-  truth, and ``--save`` writes the poses to an ``.npz`` checkpoint.
+  (``--pipelined``, ``--async-refine``, ``--loop-every``,
+  ``--keyframe-translation`` / ``--keyframe-angle``, ``--odometry-weight``);
+  one JSON record per scan, with ``--eval GT_TUM`` one more with the ATE and
+  RPE against a TUM ground truth; ``--save`` writes the poses to an ``.npz``
+  checkpoint and ``--render`` the trajectory and map to a PNG (batch and
+  scan-to-map runs).
 * ``graph`` — optimize a g2o pose graph (robust kernels, dense / CG / PCG),
   or run the outlier-injection protocol on it (``--outlier-protocol``).
 * ``methods`` — list the registry (the reference prints it on an unknown
@@ -30,18 +40,22 @@ Inputs load in float32 with power-of-two bucket capacity
 float32 on the card, float64 with ``--platform cpu``.  ``--platform gpu``
 (the default) runs on the CUDA card and fails without one; ``--platform
 cpu`` runs on the CPU.  Not ported, so refused: the JAX CLI's
-``--aot-cache``, ``--async-refine`` and ``--render``.
+``--aot-cache``.  ``bench --data-dir`` defaults to the repository's
+``ex_data``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ex_data")
 
 
 def _parse_config(pairs):
@@ -107,6 +121,23 @@ def _device(platform: str) -> torch.device:
     if not torch.cuda.is_available():
         raise SystemExit("error: --platform gpu needs a CUDA card (use --platform cpu)")
     return torch.device("cuda", 0)
+
+
+def _parse_view_conf(path: str) -> dict:
+    """Parse the reference's display conf (``view.conf:1-7``: window_width/
+    height, x/y_displace, view_scale as ``key = value`` lines)."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#") or "=" not in line:
+                continue
+            key, _, value = line.partition("=")
+            try:
+                out[key.strip()] = float(value.strip())
+            except ValueError:
+                pass
+    return out
 
 
 def _load_scan(path: str, capacity, device):
@@ -185,6 +216,111 @@ def cmd_register(args):
         print(f"wrote {args.out_ply}")
 
 
+def cmd_view(args):
+    from .geometry import identity
+    from .vis import assemble_animation, render_registration
+
+    device = _device(args.platform)
+    view_conf = _parse_view_conf(args.view_conf) if args.view_conf else {}
+    source = _load_scan(args.src, None, device)
+    target = _load_scan(args.dst, None, device)
+    method = _make_method(args.method, 2, _parse_config(args.config))
+
+    def log(dump):
+        if args.log:
+            print(f"iteration={dump.iteration} cost={dump.cost:.6f} "
+                  f"t={dump.translation.tolist()}")
+
+    dumps = render_registration(
+        method, source, target, identity(2, dtype=torch.float32, device=device),
+        out_dir=args.out, iterations=args.iterations, every=args.every,
+        light_mode=args.basic_mode, log=log, view_conf=view_conf)
+    print(f"wrote {len(range(0, args.iterations + 1, args.every))} frames to {args.out}")
+    print(f"final cost {dumps[-1].cost:.6f}")
+    if args.animate:
+        out = assemble_animation(args.out, args.animate, dumps, fps=args.fps)
+        print(f"wrote animation {out}")
+
+
+def _sync(device) -> None:
+    """Wait for the card's queued work before a clock read."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_bench(args):
+    from .cloud import PointCloud
+    from .driver import DriverConfig, make_converge_fn
+    from .geometry import identity
+    from .io import parse_lidar_scan
+    from .methods import registered_methods
+
+    device = _device(args.platform)
+    methods = args.methods or registered_methods(2)
+    cfg = DriverConfig(max_iterations=50, angle_tolerance=float(np.deg2rad(0.1)),
+                       translation_tolerance=0.01)
+
+    def load(path):
+        return parse_lidar_scan(path, dtype=torch.float32, device=device)
+
+    for name in methods:
+        for scan_id in args.scans:
+            src = load(f"{args.data_dir}/scan{scan_id}/first.csv")
+            dst = load(f"{args.data_dir}/scan{scan_id}/second.csv")
+            method = _make_method(name, 2, _parse_config(args.config))
+            fn = make_converge_fn(method, cfg)
+            guess = identity(2, dtype=torch.float32, device=device)
+            fn(src, dst, guess)  # warm-up, excluded as the reference excludes process start
+            _sync(device)
+
+            costs, iters = [], []
+            t0 = time.perf_counter()
+            for _ in range(args.invocations):
+                result, _ = fn(src, dst, guess)
+                costs.append(float(result.cost))
+                iters.append(int(result.iteration_count))
+            _sync(device)
+            dt = time.perf_counter() - t0
+
+            batched_line = ""
+            if args.batch:
+                bsz = args.batch
+
+                def lanes(c):
+                    return PointCloud(c.points.expand(bsz, *c.points.shape).contiguous(),
+                                      c.count.expand(bsz).contiguous())
+
+                ab, bb = lanes(src), lanes(dst)
+                gb = identity(2, (bsz,), dtype=torch.float32, device=device)
+                rb, _ = fn(ab, bb, gb)
+                float(rb.cost.sum())
+                _sync(device)
+                t0b = time.perf_counter()
+                for _ in range(3):
+                    rb, _ = fn(ab, bb, gb)
+                    float(rb.cost.sum())
+                _sync(device)
+                dtb = time.perf_counter() - t0b
+                batched_line = (f"* Batched throughput ({bsz} pairs/invocation): "
+                                f"{bsz * 3 / dtb:.1f} pairs/s")
+
+            costs_sorted, iters_sorted = sorted(costs), sorted(iters)
+            print(f"ICP method: {name}, scan {scan_id}")
+            print(f"* Number of invocations: {args.invocations}")
+            print(f"* Min cost: {costs_sorted[0]:.6g}")
+            print(f"* Max cost: {costs_sorted[-1]:.6g}")
+            print(f"* Median cost: {costs_sorted[len(costs) // 2]:.6g}")
+            print(f"* Mean cost: {np.mean(costs):.6g}")
+            print(f"* Min iterations: {iters_sorted[0]}")
+            print(f"* Max iterations: {iters_sorted[-1]}")
+            print(f"* Median iterations: {iters_sorted[len(iters) // 2]}")
+            print(f"* Mean iterations: {np.mean(iters):.4g}")
+            print(f"* Average time per invocation: {dt / args.invocations:.6g}s")
+            print(f"* Average time per iteration: {dt / max(sum(iters), 1):.6g}s")
+            if batched_line:
+                print(batched_line)
+
+
 def _cli_capacity(cap: int, args) -> int:
     """The power-of-two bucket of ``cap`` unless ``--exact-capacity``."""
     from .cloud import bucket_capacity
@@ -256,10 +392,21 @@ def _scan_to_map(args, device, dim) -> None:
         print(json.dumps(rec))
     poses = RigidTransform(torch.stack([p.rotation for p in poses]),
                            torch.stack([p.translation for p in poses]))
+    if args.render:
+        from .cloud import stack
+
+        _render(args.render, poses, stack(clouds))
     if args.save:
         _save_poses(args.save, poses, "trajectory")
     if args.eval:
         _eval_against_tum(poses, args.eval, dim)
+
+
+def _render(path: str, poses, scans) -> None:
+    from .vis import render_trajectory
+
+    render_trajectory(path, poses, scans=scans)
+    print(f"wrote {path}", file=sys.stderr)
 
 
 def _save_poses(path: str, poses, what: str) -> None:
@@ -298,6 +445,8 @@ def cmd_odometry(args):
             rec["iterations"] = int(traj.registration.iteration_count[t - 1])
             rec["cost"] = float(traj.registration.cost[t - 1])
         print(json.dumps(rec))
+    if args.render:
+        _render(args.render, poses, scans)
     if args.save:
         _save_poses(args.save, poses, "trajectory")
     if args.eval:
@@ -325,7 +474,7 @@ def _online(args, scans, method, cfg, device, dim) -> None:
         robust=args.robust_kernel, robust_scale=args.robust_scale,
         scale_passes=args.scale_passes, mapping_threshold=args.mapping_threshold,
         closure_information=args.closure_information, pipelined=args.pipelined,
-        device=device,
+        async_refine=args.async_refine, device=device,
     )
     live = []
 
@@ -561,6 +710,36 @@ def main(argv=None):
     _add_driver_flags(p_reg)
     p_reg.set_defaults(fn=cmd_register)
 
+    p_view = sub.add_parser("view", help="render registration frames (offline LidarView)")
+    p_view.add_argument("-S", "--src", required=True)
+    p_view.add_argument("-D", "--dst", required=True)
+    p_view.add_argument("-m", "--method", default="vanilla")
+    p_view.add_argument("-c", "--config", nargs="*")
+    p_view.add_argument("--basic-mode", action="store_true", help="light background")
+    p_view.add_argument("--view-conf",
+                        help="display conf file (view.conf format: window size, scale)")
+    p_view.add_argument("-l", "--log", action="store_true", help="per-iteration debug dump")
+    p_view.add_argument("--out", default="view_frames")
+    p_view.add_argument("--iterations", type=int, default=20)
+    p_view.add_argument("--every", type=int, default=1)
+    p_view.add_argument("--animate",
+                        help="assemble frames into .gif or interactive .html (SPACE run / I "
+                        "step / D dump, like the SDL viewer)")
+    p_view.add_argument("--fps", type=int, default=5)
+    p_view.set_defaults(fn=cmd_view)
+
+    p_bench = sub.add_parser("bench", help="benchmark registered methods on example scans")
+    p_bench.add_argument("--methods", nargs="*", help="default: all registered 2D methods")
+    p_bench.add_argument("--scans", nargs="*", type=int, default=[1, 2, 3])
+    p_bench.add_argument("--invocations", type=int, default=10)
+    p_bench.add_argument("--data-dir", default=DATA_DIR,
+                         help="directory with scan1/, scan2/, ... (default: the repository's "
+                         "ex_data)")
+    p_bench.add_argument("-c", "--config", nargs="*")
+    p_bench.add_argument("--batch", type=int, default=0,
+                         help="also measure batched throughput at this many pairs/invocation")
+    p_bench.set_defaults(fn=cmd_bench)
+
     p_odo = sub.add_parser("odometry", help="chain a scan sequence into a trajectory")
     p_odo.add_argument("--scans", nargs="+", required=True,
                        help="ordered scan CSVs or .conf sweeps (or PLYs with --ply)")
@@ -632,6 +811,12 @@ def main(argv=None):
         help="(--online) launch each scan's step before the previous scan's promotion is "
         "read: records stream with one scan of latency",
     )
+    p_odo.add_argument(
+        "--async-refine", action="store_true",
+        help="(--online) solve loop-closure refinements on a worker thread: the solve "
+        "leaves the add_scan path and its exact left-compose correction lands at the first "
+        "scan after it finishes",
+    )
     p_odo.add_argument("--loop-every", type=int, default=8,
                        help="(--online) refine every N keyframes")
     p_odo.add_argument("--keyframe-translation", type=float, default=0.5)
@@ -639,6 +824,7 @@ def main(argv=None):
     p_odo.add_argument("--odometry-weight", type=float, default=1.0,
                        help="graph information weight of odometry edges (~1/sigma^2; raise "
                        "it when the front end tracks well)")
+    p_odo.add_argument("--render", help="write a trajectory/map PNG to this path")
     p_odo.add_argument("--save", help="checkpoint the trajectory poses (.npz)")
     p_odo.add_argument(
         "--robust-kernel", default="none",

@@ -38,6 +38,7 @@ from . import geometry
 from .cloud import PointCloud
 from .geometry import RigidTransform
 from .methods.base import Method
+from .utils.profiling import nvtx_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,26 +159,32 @@ def _loop(
     ):
         raise ValueError("no termination criterion set; the loop would never end")
     start = time.monotonic()
-    state = method.init(source, target, guess)
-    cost = method.cost(state)
-    iteration = torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
-    has_last = torch.zeros(cost.shape, dtype=torch.bool, device=cost.device)
-    active = ~_should_terminate(
-        config, cost, iteration, state.transform, has_last, cost, state.transform
-    )
-    while bool(active.any()):
+    dev = source.points.device
+    with nvtx_range("converge.init", dev):
+        state = method.init(source, target, guess)
+        cost = method.cost(state)
+        iteration = torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
+        has_last = torch.zeros(cost.shape, dtype=torch.bool, device=cost.device)
+        active = ~_should_terminate(
+            config, cost, iteration, state.transform, has_last, cost, state.transform
+        )
+    while True:
+        with nvtx_range("converge.sync", dev):
+            if not bool(active.any()):
+                break
         if config.time_limit is not None and time.monotonic() - start > config.time_limit:
             break
-        last_cost, last_transform = cost, state.transform
-        new_state = method.iterate(state)
-        new_cost = method.cost(new_state)
-        state = _freeze(active, new_state, state)
-        cost = torch.where(active, new_cost, cost)
-        iteration = iteration + active.to(torch.int32)
-        has_last = has_last | active
-        active = active & ~_should_terminate(
-            config, cost, iteration, state.transform, has_last, last_cost, last_transform
-        )
+        with nvtx_range("converge.iterate", dev):
+            last_cost, last_transform = cost, state.transform
+            new_state = method.iterate(state)
+            new_cost = method.cost(new_state)
+            state = _freeze(active, new_state, state)
+            cost = torch.where(active, new_cost, cost)
+            iteration = iteration + active.to(torch.int32)
+            has_last = has_last | active
+            active = active & ~_should_terminate(
+                config, cost, iteration, state.transform, has_last, last_cost, last_transform
+            )
     return ConvergenceState(cost, iteration, state.transform), state
 
 

@@ -1,10 +1,13 @@
 """Lidar scan CSV parsing.
 
-Port of :mod:`icp_tpu.io.scan_csv` (after ``common/parse_scan.cpp:18-50``),
-in plain Python and numpy: each line is ``x,y``; unparsable rows and rows
-with a non-finite coordinate (lidar no-returns) are dropped.  The JAX
-package's native C++ loader (``native/``) is not bound here; every path
-parses in Python.
+Port of :mod:`icp_tpu.io.scan_csv` (after ``common/parse_scan.cpp:18-50``):
+each line is ``x,y``; unparsable rows and rows with a non-finite coordinate
+(lidar no-returns) are dropped.  As in the JAX package, the native C++
+loader (``native/``, through :mod:`icp_tpu_torch.utils.native`) parses
+when the library is built: one file in :func:`parse_lidar_scan_array`, many
+on threads in :func:`parse_lidar_scan_batch` with an int ``capacity``.
+Without the library, or when it reports an error, the Python parser runs
+and gives the same arrays.
 """
 
 from __future__ import annotations
@@ -16,10 +19,16 @@ import torch
 
 from ..cloud import PointCloud, bucket_capacity, from_points, round_up
 from ..geometry import default_dtype
+from ..utils.native import native_lib
 
 
 def parse_lidar_scan_array(path: str) -> np.ndarray:
     """Parse a scan CSV into an ``(n, 2)`` float64 array of finite points."""
+    lib = native_lib()
+    if lib is not None:
+        pts = lib.parse_scan_csv(path)
+        if pts is not None:
+            return pts
     rows = []
     with open(path, "r") as f:
         for line in f:
@@ -56,26 +65,36 @@ def parse_lidar_scan_batch(
     ``capacity=None`` pads to the largest scan rounded up to a multiple of 8,
     ``"bucket"`` to the power-of-two bucket of the largest scan
     (:func:`~icp_tpu_torch.cloud.bucket_capacity`), an int to itself (a scan
-    that does not fit raises).  On the card unless ``device="cpu"``; ``dtype``
-    defaults to float64 on the CPU and float32 elsewhere.
+    that does not fit raises).  With an int ``capacity`` the native loader
+    parses the files on threads when it is built.  On the card unless
+    ``device="cpu"``; ``dtype`` defaults to float64 on the CPU and float32
+    elsewhere.
     """
     paths = list(paths)
     if not paths:
         raise ValueError("parse_lidar_scan_batch: empty path list")
-    arrays = [parse_lidar_scan_array(p) for p in paths]
-    largest = max(len(a) for a in arrays)
-    if capacity == "bucket":
-        capacity = bucket_capacity(largest)
-    elif capacity is None:
-        capacity = max(round_up(largest, 8), 8)
-    out = np.zeros((len(arrays), capacity, 2))
-    counts = np.zeros(len(arrays), dtype=np.int32)
-    for i, a in enumerate(arrays):
-        if len(a) > capacity:
-            raise ValueError(f"{paths[i]}: {len(a)} points exceed capacity {capacity}")
-        out[i, : len(a)] = a
-        counts[i] = len(a)
     dtype = default_dtype(device) if dtype is None else dtype
+    got = None
+    if capacity is not None and capacity != "bucket":
+        lib = native_lib()
+        if lib is not None:
+            got = lib.parse_scan_batch(paths, capacity)
+    if got is None:
+        arrays = [parse_lidar_scan_array(p) for p in paths]
+        largest = max(len(a) for a in arrays)
+        if capacity == "bucket":
+            capacity = bucket_capacity(largest)
+        elif capacity is None:
+            capacity = max(round_up(largest, 8), 8)
+        out = np.zeros((len(arrays), capacity, 2))
+        counts = np.zeros(len(arrays), dtype=np.int32)
+        for i, a in enumerate(arrays):
+            if len(a) > capacity:
+                raise ValueError(f"{paths[i]}: {len(a)} points exceed capacity {capacity}")
+            out[i, : len(a)] = a
+            counts[i] = len(a)
+    else:
+        out, counts = got
     return PointCloud(
         torch.tensor(out, dtype=dtype, device=device),
         torch.tensor(counts, dtype=torch.int32, device=device),

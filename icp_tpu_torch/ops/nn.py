@@ -27,20 +27,21 @@ def pairwise_sq_dists(query: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
     """Squared distances ``(..., N, D) x (..., M, D) -> (..., N, M)``.
 
     One subtract, one multiply and one add per coordinate, each a separate
-    elementwise op, so nothing is contracted into a fused multiply-add.
+    elementwise op, so nothing is contracted into a fused multiply-add; the
+    multiply and the add work in place on the fresh differences.
     """
     acc = None
     for d in range(query.shape[-1]):
         diff = query[..., :, None, d] - targets[..., None, :, d]
-        sq = diff * diff
-        acc = sq if acc is None else acc + sq
+        diff.mul_(diff)
+        acc = diff if acc is None else acc.add_(diff)
     return acc
 
 
 def _nearest_dense(query, targets, target_mask):
     d2 = pairwise_sq_dists(query, targets)
     if target_mask is not None:
-        d2 = d2.masked_fill(~target_mask[..., None, :], float("inf"))
+        d2.masked_fill_(~target_mask[..., None, :], float("inf"))
     # torch.min returns the first minimal index of each row: ties go low.
     sq, idx = torch.min(d2, dim=-1)
     return sq, idx.to(torch.int32)

@@ -37,12 +37,18 @@ shape) and ``shard_over_edges`` (it waits for the port of ``parallel``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 from . import geometry, lie
 from .geometry import RigidTransform
+
+# torch.func.jvp keeps its forward-AD levels in process-wide state, so two
+# threads linearizing at once (an asynchronous SLAM solve beside another
+# solve) corrupt each other's levels: one linearization at a time.
+_JVP_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,8 +148,9 @@ def _edge_linearization(
     zero = torch.zeros((e, 2 * d), dtype=poses.dtype, device=poses.translation.device)
     basis = torch.eye(2 * d, dtype=zero.dtype, device=zero.device)[:, None, :].expand(
         2 * d, e, 2 * d)
-    r, cols = torch.func.vmap(lambda t: torch.func.jvp(res, (zero,), (t,)),
-                              out_dims=(None, 0))(basis)
+    with _JVP_LOCK:
+        r, cols = torch.func.vmap(lambda t: torch.func.jvp(res, (zero,), (t,)),
+                                  out_dims=(None, 0))(basis)
     jac = cols.permute(1, 2, 0)  # (E, dof, 2 dof)
     return r, jac[..., :d], jac[..., d:]
 

@@ -17,24 +17,47 @@ refused.  The pipelined mode's cost-anomaly retry is decided as in the JAX
 package, but its predicate is read on the host (one sync), and the retry
 converge runs only when it holds.
 
+``async_refine=True`` takes the graph solve off the ``add_scan`` path: the
+session builds the graph on its own thread and hands the solve to a
+single worker thread (on the card, on a CUDA stream of its own); the first
+``add_scan`` after the solve has finished applies it by the exact
+left-compose correction.  On the card a solve has finished when the worker
+has returned and the event it records after the solve's kernels has
+completed (JAX's ``Array.is_ready()``), so an apply never queues the
+session's next scan behind the solve's kernels.
+
 Not ported (each only shared compiled XLA executables, and none changes a
 result: ``converge`` freezes each lane separately, and padded nodes and
 edges are inert): the lru-cached converge / device-step / graph-solver
 factories, ``prefetch_buckets``, ``aot_cache``, and ``_refine``'s node and
-closure-batch bucket padding.  Deferred: ``async_refine``.
+closure-batch bucket padding.
 
-Two departures from the reference, both corrections: :meth:`OnlineSlam.
-load_state` resets the closure-weight and robust-scale diagnostics of the
-previous session (``icp_tpu/slam.py:1024`` keeps them), and
-``mapping_kernel='gnc_gm'`` is refused when the session is built, where the
-reference fails at the first mapping-scale refinement
-(``icp_tpu/slam.py:289,445``; the fused two-pass solve's early exit does
-not support the GNC schedule).
+Four departures from the reference, all corrections of its faults:
+
+* pipelined + ``async_refine``: a finished solve is applied before the next
+  scan is launched, so its correction reaches every pose chained from the
+  stale anchor (the in-flight scan, the keyframes promoted meanwhile, the
+  live pose); the reference applies it after the launch and corrects only
+  the previous scan (``icp_tpu/slam.py:873-898``);
+* :meth:`OnlineSlam.load_state` waits out and drops an outstanding
+  asynchronous solve and resets the closure-weight and robust-scale
+  diagnostics of the previous session (``icp_tpu/slam.py:1024`` keeps
+  them);
+* a serial checkpoint loaded into a pipelined session chains from the last
+  keyframe at that keyframe's pose (``icp_tpu/slam.py:1087-1096`` means to,
+  but overwrites it with the live pose);
+* ``mapping_kernel='gnc_gm'`` is refused when the session is built, where
+  the reference fails at the first mapping-scale refinement
+  (``icp_tpu/slam.py:289,445``; the fused two-pass solve's early exit does
+  not support the GNC schedule).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -51,6 +74,7 @@ from .ops.descriptor import (
     scan_context,
     yaw_seeds,
 )
+from .utils.profiling import nvtx_range
 
 HIST = 16  # the cost history the anomaly retry reads
 
@@ -189,6 +213,49 @@ def _solve_two_pass(graph, mask, odo, kernel, robust_scale, passes, iterations, 
     return g.poses, w, scale
 
 
+def _solve_job(solve, k: int, n_loop: int, stream, events):
+    """The asynchronous refinement's worker: ``solve()`` on ``stream`` (the
+    session's solve stream on the card, None on the CPU) between the two
+    CUDA ``events`` (start, end; None on the CPU), then the slices the apply
+    needs, ``(poses[:k], closure weights, scale, k)``.  It reads only its
+    arguments and touches no session state."""
+    dev = None if stream is None else stream.device
+    ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+    with ctx, nvtx_range("slam.refine.solve", dev or "cpu"):
+        if events is not None:
+            events[0].record(stream)
+        poses, w, scale = solve()
+        out = (RigidTransform(poses.rotation[:k], poses.translation[:k]),
+               w[k - 1:k - 1 + n_loop], scale, k)
+        if events is not None:
+            events[1].record(stream)
+        return out
+
+
+@dataclasses.dataclass
+class _AsyncSolve:
+    """An outstanding asynchronous refinement: the worker's future, the
+    graph it reads (kept referenced until the apply, so that the caching
+    allocator cannot hand its memory to the session's stream meanwhile) and,
+    on the card, the CUDA events recorded around the solve's kernels."""
+
+    future: Future
+    inputs: tuple
+    events: tuple | None = None
+
+    def ready(self) -> bool:
+        """The worker has returned and, on the card, the solve's kernels
+        have completed."""
+        return self.future.done() and (self.events is None or self.events[1].query())
+
+    def block_until_ready(self) -> None:
+        """Wait until :meth:`ready` (``jax.block_until_ready``); a failure in
+        the worker raises here."""
+        self.future.result()
+        if self.events is not None:
+            self.events[1].synchronize()
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
 
@@ -216,6 +283,20 @@ class OnlineSlam:
     scan t's promotion predicate is read, updates return one scan late
     (:meth:`flush` drains the last), and a refinement that lands while a
     scan is in flight re-anchors it exactly (left-composed correction).
+
+    ``async_refine=True``: a refinement registers its closures and builds
+    the graph as usual, then hands the solve to the session's worker thread
+    (on the card, a CUDA stream of its own that waits for the graph) and
+    returns; scans go on chaining from the stale keyframe.  The first
+    ``add_scan`` after the solve has finished applies it: the solved poses
+    replace the snapshot's keyframes, and ``C = new_anchor ∘ old_anchor⁻¹``
+    is left-composed onto every pose chained from the stale anchor since
+    (keyframes promoted meanwhile, the live pose, and in pipelined mode the
+    scans in flight), which equals the synchronous re-anchor up to roundoff.
+    A refinement due while a solve is outstanding is deferred to the next
+    refinement cycle.  A failure in the worker is raised by the apply.
+    :meth:`state_dict`, :meth:`finalize` and :func:`merge_sessions` apply
+    an outstanding solve first.
 
     The weights approximate information (1/sigma²): a stiff odometry chain
     (``odometry_weight``) is what lets the robust kernel reject a wrong
@@ -250,6 +331,7 @@ class OnlineSlam:
         closure_information: bool = False,
         information_neighbors: int = 10,
         pipelined: bool = False,
+        async_refine: bool = False,
         device="cuda",
     ):
         self._device = torch.device(device)
@@ -331,6 +413,18 @@ class OnlineSlam:
         self._correction: RigidTransform | None = None
         self._closure_weights_dev: torch.Tensor | None = None
         self._robust_scale_used: torch.Tensor | None = None
+        # Asynchronous refinement: the outstanding solve, the worker (one
+        # thread, made at the first dispatch) and, on the card, its stream.
+        # ``_in_flight`` is set while a launched scan is not yet pending
+        # (inside _add_scan_pipelined's materialize).
+        self._async_refine = async_refine
+        self._async_solve: _AsyncSolve | None = None
+        # On the card, the (start, end) CUDA events of each applied solve:
+        # the worker's device time per solve.
+        self._solve_events: list[tuple] = []
+        self._executor: ThreadPoolExecutor | None = None
+        self._solve_stream = None
+        self._in_flight = False
 
     # -- public API ---------------------------------------------------------
 
@@ -417,31 +511,33 @@ class OnlineSlam:
         # an unconverged step's angular error forward, and it compounds;
         # an anomalous cost instead gets one coarse-seeded retry, keeping
         # the lower cost.
-        pose, is_kf, result = odometry.stream_step(
-            self._fn, self._kf_clouds[-1], self._cur_kf_pose, scan, self._tt, self._ta)
-        cost = float(result.cost)
-        hist = self._cost_hist
-        if len(hist) >= 4 and cost > self._retry_factor * float(np.median(hist)):
-            from .ops.coarse import coarse_align_2d, coarse_align_3d
+        with nvtx_range("slam.register", self._device):
+            pose, is_kf, result = odometry.stream_step(
+                self._fn, self._kf_clouds[-1], self._cur_kf_pose, scan, self._tt, self._ta)
+            cost = float(result.cost)
+            hist = self._cost_hist
+            if len(hist) >= 4 and cost > self._retry_factor * float(np.median(hist)):
+                from .ops.coarse import coarse_align_2d, coarse_align_3d
 
-            coarse = coarse_align_2d if scan.dim == 2 else coarse_align_3d
-            seed = coarse(self._kf_clouds[-1], scan)
-            pose2, is_kf2, result2 = odometry.stream_step(
-                self._fn, self._kf_clouds[-1], self._cur_kf_pose, scan, self._tt, self._ta,
-                guess=seed)
-            if float(result2.cost) < cost:
-                pose, is_kf, result = pose2, is_kf2, result2
-                cost = float(result2.cost)
+                coarse = coarse_align_2d if scan.dim == 2 else coarse_align_3d
+                seed = coarse(self._kf_clouds[-1], scan)
+                pose2, is_kf2, result2 = odometry.stream_step(
+                    self._fn, self._kf_clouds[-1], self._cur_kf_pose, scan, self._tt,
+                    self._ta, guess=seed)
+                if float(result2.cost) < cost:
+                    pose, is_kf, result = pose2, is_kf2, result2
+                    cost = float(result2.cost)
         hist.append(cost)
         if len(hist) > HIST:
             hist.pop(0)
         self._pose = pose
-        refined = False
+        # A finished asynchronous solve corrects the pose just chained.
+        refined = self._maybe_apply_async()
         if is_kf:
             self._promote(scan, self._pose)
             self._kf_since_refine += 1
             if self._kf_since_refine >= self._loop_every:
-                refined = self._refine()
+                refined = self._refine() or refined
                 self._kf_since_refine = 0
         return OnlineUpdate(self._pose, bool(is_kf), refined, len(self._loop_edges))
 
@@ -453,6 +549,11 @@ class OnlineSlam:
             self._hist = torch.zeros((HIST,), dtype=scan.dtype, device=scan.points.device)
             self._hist_count = torch.tensor(0, dtype=torch.int32, device=scan.points.device)
             return OnlineUpdate(self._pose, True, False, len(self._loop_edges))
+        # A finished asynchronous solve is applied before the launch, so that
+        # its correction reaches the scan launched now and the one in
+        # flight (the reference applies it after the launch:
+        # icp_tpu/slam.py:873-898).
+        applied = self._maybe_apply_async()
         # Launch scan t against scan t - 1.  The in-flight previous pose is
         # in the pre-refinement frame until it materializes: bring it into
         # the refined frame first.
@@ -462,19 +563,29 @@ class OnlineSlam:
                 prev_pose = geometry.compose(self._correction, prev_pose)
         else:
             prev_pose = self._pose
-        pose, _, self._hist, self._hist_count = _online_step(
-            self._fn, self._prev_scan, prev_pose, scan, self._hist, self._hist_count,
-            self._retry_factor)
+        with nvtx_range("slam.register", self._device):
+            pose, _, self._hist, self._hist_count = _online_step(
+                self._fn, self._prev_scan, prev_pose, scan, self._hist, self._hist_count,
+                self._retry_factor)
         self._prev_scan = scan
-        update = self._materialize_pending() if self._pending is not None else None
+        update = None
+        if self._pending is not None:
+            # Scan t is in flight but not pending yet: a solve applied while
+            # scan t - 1 materializes must correct it too.
+            self._in_flight = True
+            try:
+                update = self._materialize_pending(applied)
+            finally:
+                self._in_flight = False
         self._pending = (scan, pose)
         return update
 
-    def _materialize_pending(self) -> OnlineUpdate:
+    def _materialize_pending(self, applied: bool) -> OnlineUpdate:
         """Resolve the in-flight scan: one host read of the promotion
         predicate, judged against the current keyframe pose (a stale anchor
         promotes on nearly every scan once the motion per scan passes half
-        the threshold), then the serial mode's promotion and refinement."""
+        the threshold), then the serial mode's promotion and refinement.
+        ``applied``: an asynchronous solve was applied for this update."""
         scan, pose = self._pending
         self._pending = None
         if self._correction is not None:
@@ -488,17 +599,19 @@ class OnlineSlam:
         dt_v, da_v = _np(torch.stack([delta_t, torch.abs(delta_a)]))  # one transfer
         promoted = float(dt_v) > self._tt or float(da_v) > self._ta
         self._pose = pose
-        refined = False
+        refined = applied
         if promoted:
             self._promote(scan, pose)
             self._kf_since_refine += 1
             if self._kf_since_refine >= self._loop_every:
                 old_kf = self._cur_kf_pose
-                refined = self._refine()
-                if refined:
-                    # Re-anchor the scan still in flight too.
+                ran = self._refine()
+                if ran:
+                    # Re-anchor the scan still in flight too (an asynchronous
+                    # refinement records its correction when it is applied).
                     self._correction = geometry.compose(self._cur_kf_pose,
                                                         geometry.inverse(old_kf))
+                refined = ran or refined
                 self._kf_since_refine = 0
         return OnlineUpdate(self._pose, promoted, refined, len(self._loop_edges))
 
@@ -507,16 +620,17 @@ class OnlineSlam:
         is pending)."""
         if self._pending is None:
             return None
-        return self._materialize_pending()
+        return self._materialize_pending(self._maybe_apply_async())
 
     def state_dict(self) -> dict:
         """The full streaming state as a dict of numpy arrays, the JAX
         package's keys, dtypes and shapes: the checkpoint payload.
         :meth:`load_state` continues exactly where this stopped.  Pipelined
         mode flushes the in-flight scan first (a checkpoint is a stream
-        boundary)."""
+        boundary); an outstanding asynchronous solve is applied."""
         if self._pipelined:
             self.flush()
+        self._maybe_apply_async(force=True)
         if not self._kf_clouds:
             return {"num_keyframes": np.asarray(0)}
         poses = self.keyframe_poses
@@ -551,8 +665,13 @@ class OnlineSlam:
 
     def load_state(self, state: dict) -> None:
         """Restore :meth:`state_dict` output (the JAX package's too) onto the
-        session's device.  Unlike the reference, the previous session's
-        closure weights and robust scale are cleared."""
+        session's device.  Unlike the reference, an outstanding asynchronous
+        solve is waited out and dropped, and the previous session's closure
+        weights and robust scale are cleared; and a serial checkpoint loaded
+        into a pipelined session chains from its last keyframe at that
+        keyframe's pose (the reference keeps the live pose there,
+        ``icp_tpu/slam.py:1087-1096``)."""
+        self._drop_async()
         k = int(state["num_keyframes"])
         if k == 0:
             return
@@ -587,6 +706,7 @@ class OnlineSlam:
         self._cost_hist = [float(c) for c in np.asarray(state["cost_hist"])]
         self._closure_weights_dev = None
         self._robust_scale_used = None
+        self._solve_events = []
         if self._pipelined:
             dtype = state["kf_points"].dtype
             hist = np.zeros((HIST,), dtype=dtype)
@@ -597,17 +717,19 @@ class OnlineSlam:
             self._hist_count = torch.tensor(min(tail.size, HIST), dtype=torch.int32, device=dev)
             self._pending = None
             self._correction = None
+        self._cur_kf_pose = RigidTransform(self._kf_poses.rotation[-1],
+                                           self._kf_poses.translation[-1])
+        self._pose = transform(state["pose_rot"], state["pose_trans"])
+        if self._pipelined:
             if "prev_points" in state:
                 self._prev_scan = PointCloud(tensor(state["prev_points"]),
                                              tensor(state["prev_count"]).to(torch.int32))
             else:
-                # A serial checkpoint: the chain goes on from the last
-                # keyframe, with the checkpoint's live pose (as the reference
-                # does; ROADMAP queue 3).
+                # A serial checkpoint: the next scan registers against the
+                # last keyframe, so the chain goes on from that keyframe's
+                # pose, not from the live scan's.
                 self._prev_scan = self._kf_clouds[-1]
-        self._cur_kf_pose = RigidTransform(self._kf_poses.rotation[-1],
-                                           self._kf_poses.translation[-1])
-        self._pose = transform(state["pose_rot"], state["pose_trans"])
+                self._pose = self._cur_kf_pose
         if self._loop_detector == "descriptor":
             # A pure function of the restored clouds: recomputed.
             self._kf_descs = [scan_context(c.points, c.mask, max_radius=self._desc_range)
@@ -641,16 +763,89 @@ class OnlineSlam:
     def finalize(self) -> bool:
         """One last closure search and robust solve over what arrived since
         the last periodic refinement (revisits often land in the final
-        keyframes); True if the solve ran.  Pipelined mode flushes first."""
+        keyframes); True if a solve ran or was applied.  Pipelined mode
+        flushes first; asynchronous solves are applied before returning."""
         if self._pipelined:
             self.flush()
         if len(self._kf_clouds) < 2:
             return False
+        applied = self._maybe_apply_async(force=True)
         refined = self._refine()
+        refined = self._maybe_apply_async(force=True) or refined
         self._kf_since_refine = 0
-        return refined
+        return refined or applied
 
     # -- internals ----------------------------------------------------------
+
+    def _dispatch_solve(self, solve, k: int, n_loop: int, inputs: tuple) -> None:
+        """Hand ``solve`` to the worker thread.  On the card its stream first
+        waits for the session's stream, where the graph was built."""
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="slam-solve")
+            if self._device.type == "cuda":
+                self._solve_stream = torch.cuda.Stream(device=self._device)
+        events = None
+        if self._solve_stream is not None:
+            self._solve_stream.wait_stream(torch.cuda.current_stream(self._device))
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        future = self._executor.submit(_solve_job, solve, k, n_loop, self._solve_stream, events)
+        self._async_solve = _AsyncSolve(future, inputs, events)
+
+    def _wait_solve(self, pend: _AsyncSolve) -> None:
+        """Wait for ``pend``'s worker; on the card the session's stream then
+        waits for the solve's end event."""
+        wait([pend.future])
+        if pend.events is not None and pend.future.exception() is None:
+            torch.cuda.current_stream(self._device).wait_event(pend.events[1])
+
+    def _drop_async(self) -> None:
+        """Wait out an outstanding solve and drop it unapplied: its result
+        belongs to the state being replaced."""
+        pend, self._async_solve = self._async_solve, None
+        if pend is not None:
+            self._wait_solve(pend)
+
+    def _maybe_apply_async(self, force: bool = False) -> bool:
+        """Apply a finished asynchronous refinement (unless ``force``, only
+        when :meth:`_AsyncSolve.ready`); False when none is outstanding.  The
+        correction ``C = new_anchor ∘ old_anchor⁻¹`` moves every pose
+        chained from the snapshot's anchor since: the keyframes promoted
+        meanwhile, the live pose, and in pipelined mode the scans in flight
+        (recorded in ``_correction``)."""
+        pend = self._async_solve
+        if pend is None or not (force or pend.ready()):
+            return False
+        self._async_solve = None
+        with nvtx_range("slam.refine.apply", self._device):
+            self._wait_solve(pend)
+            new_poses, w_slice, scale, k_snap = pend.future.result()  # a worker's failure raises
+            if pend.events is not None:
+                self._solve_events.append(pend.events)
+            if self._solve_stream is not None:
+                # Made on the worker's stream, now used on the session's.
+                stream = torch.cuda.current_stream(self._device)
+                for t in (new_poses.rotation, new_poses.translation, w_slice, scale):
+                    t.record_stream(stream)
+            poses_now = self.keyframe_poses
+            old_anchor = RigidTransform(poses_now.rotation[k_snap - 1],
+                                        poses_now.translation[k_snap - 1])
+            new_anchor = RigidTransform(new_poses.rotation[k_snap - 1],
+                                        new_poses.translation[k_snap - 1])
+            corr = geometry.compose(new_anchor, geometry.inverse(old_anchor))
+            if poses_now.translation.shape[0] > k_snap:
+                tail = geometry.compose(corr, RigidTransform(poses_now.rotation[k_snap:],
+                                                             poses_now.translation[k_snap:]))
+                new_poses = RigidTransform(torch.cat([new_poses.rotation, tail.rotation]),
+                                           torch.cat([new_poses.translation, tail.translation]))
+            self._kf_poses = new_poses
+            self._cur_kf_pose = RigidTransform(new_poses.rotation[-1], new_poses.translation[-1])
+            self._pose = geometry.compose(corr, self._pose)
+            if self._pipelined and (self._pending is not None or self._in_flight):
+                self._correction = (corr if self._correction is None
+                                    else geometry.compose(corr, self._correction))
+            self._closure_weights_dev = w_slice
+            self._robust_scale_used = scale
+        return True
 
     def _promote(self, scan: PointCloud, pose: RigidTransform) -> None:
         if self._kf_clouds:
@@ -693,7 +888,16 @@ class OnlineSlam:
         return _np(cands).reshape(-1, 2), {}
 
     def _refine(self) -> bool:
-        """Detect and register new closures, robust-solve, re-anchor."""
+        """Detect and register new closures, robust-solve, re-anchor (with
+        ``async_refine``: hand the solve to the worker and return False).
+        While an asynchronous solve is outstanding, a refinement applies it
+        if it has finished and is deferred otherwise."""
+        if self._async_solve is not None and not self._maybe_apply_async():
+            return False
+        with nvtx_range("slam.refine", self._device):
+            return self._refine_now()
+
+    def _refine_now(self) -> bool:
         poses = self.keyframe_poses
         k = len(self._kf_clouds)
         cands, yaw_by_pair = self._candidates(poses, k)
@@ -750,12 +954,17 @@ class OnlineSlam:
         if self._robust != "none" and self._scale_passes != 1 and (
                 self._scale_passes != "auto" or n_loop >= self._mapping_threshold):
             passes = 2 if self._scale_passes == "auto" else int(self._scale_passes)
-            new_poses, w, scale = _solve_two_pass(
-                graph, mask, odo, self._mapping_kernel, self._robust_scale, passes,
-                self._gn_iterations, self._gn_solver)
+            solve = functools.partial(
+                _solve_two_pass, graph, mask, odo, self._mapping_kernel, self._robust_scale,
+                passes, self._gn_iterations, self._gn_solver)
         else:
-            new_poses, w, scale = _solve_single(graph, mask, self._robust, self._robust_scale,
-                                                self._gn_iterations, self._gn_solver)
+            solve = functools.partial(_solve_single, graph, mask, self._robust,
+                                      self._robust_scale, self._gn_iterations, self._gn_solver)
+        if self._async_refine:
+            with nvtx_range("slam.refine.dispatch", dev):
+                self._dispatch_solve(solve, k, n_loop, (graph, mask, odo))
+            return False
+        new_poses, w, scale = solve()
         self._closure_weights_dev = w[k - 1:k - 1 + n_loop]  # after the odometry block
         self._robust_scale_used = scale
         # Re-anchor: new keyframe poses; the live pose keeps its offset from
@@ -896,7 +1105,7 @@ def merge_sessions(
         mapping_threshold=a._mapping_threshold, gn_iterations=a._gn_iterations,
         gn_solver=a._gn_solver, closure_information=a._closure_information,
         information_neighbors=a._information_neighbors, pipelined=a._pipelined,
-        device=a._device,
+        async_refine=a._async_refine, device=a._device,
     )
     merged.load_state(state)
     before = len(merged._loop_edges)
@@ -912,6 +1121,9 @@ def merge_sessions(
                 # would stop after one).
                 merged._desc_queried = 0
             refined = merged._refine() or refined
+            # Saturation is a batch loop: land an asynchronous solve before
+            # deciding whether the round added closures.
+            merged._maybe_apply_async(force=True)
             if len(merged._loop_edges) == seen:
                 break
     return merged, MergeReport(anchor=anchor, keyframes=(k_a, k_b),

@@ -213,20 +213,20 @@ def test_odometry_scan_to_map_hint_and_ignored_flags(capsys):
 def test_odometry_refuses_slam_flags(capsys, tmp_path, monkeypatch, flag):
     """The SLAM flags run: the offline back end (``--optimize``,
     ``--loop-radius``, ``--loop-descriptor``), online SLAM (``--online``,
-    with ``--pipelined`` and ``--odometry-weight`` taking effect under it)
-    and ``--save``.  ``--async-refine`` (deferred), ``--render`` and
-    ``--aot-cache`` are still refused by argparse."""
+    with ``--pipelined``, ``--async-refine`` and ``--odometry-weight``
+    taking effect under it) and ``--save``.  Only ``--aot-cache`` is still
+    refused by argparse (with ``--async-refine``'s case)."""
     monkeypatch.chdir(tmp_path)
     args = ["--platform", "cpu", "odometry", "--scans", *SWEEPS[:2], flag]
     if flag == "--async-refine":
+        cli.main([*args, "--online"])
+        captured = capsys.readouterr()
+        assert len(captured.out.strip().splitlines()) == 2
+        assert "online slam: " in captured.err
         with pytest.raises(SystemExit) as exc:
-            cli.main(args)
+            cli.main([*args[:-1], "--aot-cache=cache"])
         assert exc.value.code == 2
         assert "unrecognized arguments" in capsys.readouterr().err
-        for refused in ("--render=out.png", "--aot-cache=cache"):
-            with pytest.raises(SystemExit):
-                cli.main([*args[:-1], refused])
-            assert "unrecognized arguments" in capsys.readouterr().err
         return
     cli.main(args)
     captured = capsys.readouterr()
@@ -286,6 +286,93 @@ def test_odometry_slam_matches_jax_cli(capsys, tmp_path, case):
     assert [a.shape for a in port_leaves] == [a.shape for a in jax_leaves]
     for a, b in zip(port_leaves, jax_leaves):
         np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+def test_odometry_online_async_refine_quality(capsys, tmp_path):
+    """``--online --async-refine`` on the 10 seq2loop sweeps: every record
+    streams, refinements land, and the finalized keyframe trajectory is
+    within 5 cm of the synchronous run's (``tests/test_online_slam.py``'s
+    limit for the library; the apply timing is not pinned here)."""
+    runs = {}
+    for name, extra in (("sync", []), ("async", ["--async-refine"])):
+        path = str(tmp_path / f"{name}.npz")
+        records, err = _odometry(cli.main, capsys, [*ONLINE_ARGS, *ONLINE["online"], *extra,
+                                                    "--save", path])
+        runs[name] = records, err, T.checkpoint.load_leaves(path)
+    (records, err, (_, kf_async)), (sync_records, _, (_, kf_sync)) = runs["async"], runs["sync"]
+    assert len(records) == len(SEQ2) and "online slam: " in err
+    assert [r["keyframe"] for r in records] == [r["keyframe"] for r in sync_records]
+    assert any(r["refined"] for r in records) or "finalize ran a refinement" in err
+    assert kf_async.shape == kf_sync.shape
+    assert float(np.linalg.norm(kf_async - kf_sync, axis=-1).max()) < 0.05
+
+
+@pytest.mark.parametrize("case", ["batch", "scan-to-map"])
+def test_odometry_render_writes_png(capsys, tmp_path, case):
+    out = str(tmp_path / "traj.png")
+    extra = ["--scan-to-map", "--max-iterations", "5"] if case == "scan-to-map" else []
+    records, err = _odometry(cli.main, capsys, ["--scans", *SWEEPS[:3], *extra, "--render", out])
+    assert len(records) == 3 and f"wrote {out}" in err
+    with open(out, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def _view_lines(main, capsys, out_dir, extra=()):
+    main(["--platform", "cpu", "view", *CASES["scan1 trimmed"], "-l", "--iterations", "4",
+          "--every", "2", "--out", str(out_dir), *extra])
+    return capsys.readouterr().out.strip().splitlines()
+
+
+def test_view_log_matches_jax_cli(capsys, tmp_path):
+    """``view -l``: one dump line per iteration (iteration exact, cost and
+    translation at float32 tolerance) and the same frames as the JAX CLI;
+    ``--view-conf`` and ``--animate`` run."""
+    conf = tmp_path / "view.conf"
+    conf.write_text("window_width = 400\nwindow_height = 300\nview_scale = 25\n# note\n")
+    got = _view_lines(cli.main, capsys, tmp_path / "port",
+                      ["--view-conf", str(conf), "--animate", str(tmp_path / "a.html")])
+    want = _view_lines(jax_cli.main, capsys, tmp_path / "jax")
+    assert got[-1] == f"wrote animation {tmp_path / 'a.html'}"
+    got = got[:-1]
+    assert len(got) == len(want) == 7
+    for g, w in zip(got[:5], want[:5]):
+        gi, gc, gt = (part.split("=", 1)[1] for part in g.split(" ", 2))
+        wi, wc, wt = (part.split("=", 1)[1] for part in w.split(" ", 2))
+        assert gi == wi
+        assert float(gc) == pytest.approx(float(wc), abs=2e-6)
+        np.testing.assert_allclose(json.loads(gt), json.loads(wt), atol=1e-5)
+    assert (got[5], want[5]) == (f"wrote 3 frames to {tmp_path / 'port'}",
+                                 f"wrote 3 frames to {tmp_path / 'jax'}")
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax"))
+    assert cli._parse_view_conf(str(conf)) == {"window_width": 400.0, "window_height": 300.0,
+                                               "view_scale": 25.0}
+
+
+def _bench_report(main, capsys, args):
+    main(["--platform", "cpu", "bench", "--data-dir", DATA, *args])
+    return [line for line in capsys.readouterr().out.splitlines()
+            if "time per" not in line and "Batched" not in line]
+
+
+def test_bench_matches_jax_cli(capsys):
+    """``bench``'s report against the JAX CLI's on scans 1 and 2 (two of the
+    eight 2D methods, for the test's time), the timing lines aside: the
+    same lines, iteration statistics equal, costs at float32 tolerance;
+    ``--batch`` adds the throughput line."""
+    args = ["--invocations", "2", "--methods", "vanilla", "trimmed", "--scans", "1", "2"]
+    got = _bench_report(cli.main, capsys, args)
+    want = _bench_report(jax_cli.main, capsys, args)
+    assert len(got) == len(want) == 4 * 10
+    for g, w in zip(got, want):
+        key, _, value = g.partition(": ")
+        assert key == w.partition(": ")[0]
+        if "cost" in key:
+            assert float(value) == pytest.approx(float(w.partition(": ")[2]), rel=1e-4)
+        else:
+            assert g == w
+    cli.main(["--platform", "cpu", "bench", "--data-dir", DATA, "--invocations", "1",
+              "--methods", "vanilla", "--scans", "1", "--batch", "4"])
+    assert "* Batched throughput (4 pairs/invocation):" in capsys.readouterr().out
 
 
 def test_odometry_eval_pose_count_mismatch(capsys, gt_tum):
