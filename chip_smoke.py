@@ -37,7 +37,8 @@
    it.  Prints iterations, the median of 5 timed calls, the traced device
    busy share, and the ms per call of each step of one iterate (with the
    quaternion fit's kernel count).  Both methods again on the CPU in float64
-   (SVD): translation within 2e-3 m, rotation columns unit to 1e-5.
+   (SVD; in a worker process, queued at the start): translation within
+   2e-3 m, rotation columns unit to 1e-5.
 7. The 2D method matrix (``bench.py::run_matrix``): ``vanilla``,
    single-scale ``trimmed`` and ``feature_aware`` on scans 1-3, B = 256,
    float32, capacity 1024 (scan2, with 1,090 points, at 1,096), the bench's
@@ -151,9 +152,30 @@
    ``nn_roofline``; (d) ``cli view`` on scan1 trimmed, 20 iterations on
    the card, the last frame within 2e-3 m of CPU float64
    (without matplotlib, the frame stepping alone), and ``cli bench`` on
-   scans 1-3; (e) the eight examples as subprocesses at
+   scans 1-3; (e) the nine examples as subprocesses at
    ``ICP_EXAMPLES_QUICK=1``, each exiting 0 with its key line.  The pinned
    streams and the examples run beside 11c, 11d, 12c and 12d's view.
+
+13. The parallel layer (``icp_tpu_torch.parallel``): (a) in a process of
+   its own, at world size 1 on NCCL: the fleet example at full size
+   (robust 2D, 64 pairs); phase 4's 1,024 lanes at full resolution through
+   ``make_sharded_converge_fn`` on mesh (1, 1), points off and on, bit-equal
+   to ``converge`` (pairs/s of the three, median of 3 interleaved);
+   ``big_cloud_converge`` on the queen pair, ungated and gated at 1.0,
+   gather and ring, 10 iterations by SVD: ring bit-equal to gather, within
+   float32 rounding (2e-5) of the card's vanilla / trimmed 3D iterate and
+   within 2e-3 m of the CPU float64 iterate (pool tasks queued at the
+   start), ms per iteration; ``sharded_nearest_neighbors`` and
+   ``ring_nearest_neighbors`` at the queen shape equal to K2; m3500 through
+   ``shard_over_edges`` + PCG (phase 10a's 30 x 50) against the unsharded
+   solve, ms per GN iteration of both.  (b) Four gloo ranks on the one card,
+   started beside (a) and released after it: the NN merges over 4 target
+   blocks and with every target in each block (ties) equal to K2; big cloud
+   gather and ring over 4 point blocks within float32 rounding of (a); the
+   lanes over 4 data ranks bit-equal to ``converge`` on each rank's 256
+   lanes, and against (a)'s one batch of 1,024 (iterations equal, within
+   1e-6 m, where the lane stops on the same iteration).  Four processes on
+   one card measure nothing about scaling.
 
 Phase 3 also runs K1 and K2 on the queen-scale pair itself,
 (1, 10720, 10720, 3) float32, timed beside its bound, the plain version and
@@ -177,12 +199,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import datetime
 import io
 import json
 import math
 import os
 import re
 import resource
+import socket
 import subprocess
 import sys
 import time
@@ -584,20 +608,39 @@ def _iterate_steps_3d(torch, icp, source, target, dev) -> str:
          f"whole iterate {iterate_kernels}"
 
 
-def _phase_3d(torch, np, icp, dev) -> dict:
+QUEEN_METHODS = (("trimmed", {"max_distance": 1.0}), ("vanilla", {}))
+QUEEN_DRIVER = dict(max_iterations=100, angle_tolerance=1e-4, translation_tolerance=1e-4)
+
+
+def _phase6_reference(name: str) -> dict:
+    """Pool task: phase 6's CPU float64 run (SVD) of ``name`` 3D on the
+    queen-scale pair, queued at the start so that it runs beside phases
+    1-6."""
+    sys.path.insert(0, REPO)
+    import icp_tpu_torch as icp
+
+    src_pts, dst_pts = (icp.read_ply(os.path.join(REPO, p)) for p in QUEEN)
+    method = icp.from_method(name, 3, icp.Config(**dict(QUEEN_METHODS)[name]))
+    t0 = time.perf_counter()
+    out, _ = icp.converge(method, icp.from_points(src_pts, device="cpu"),
+                          icp.from_points(dst_pts, device="cpu"), icp.identity(3, device="cpu"),
+                          icp.DriverConfig(**QUEEN_DRIVER))
+    return {"translation": out.transform.translation.numpy(),
+            "iterations": int(out.iteration_count), "seconds": time.perf_counter() - t0}
+
+
+def _phase_3d(torch, np, icp, dev, refs) -> dict:
     """Phase 6: trimmed and vanilla 3D on the queen-scale pair; returns the
     K1/K2 launches of each method's run."""
     src_pts, dst_pts = (icp.read_ply(os.path.join(REPO, p)) for p in QUEEN)
     source = icp.from_points(src_pts, dtype=torch.float32, device=dev)
     target = icp.from_points(dst_pts, dtype=torch.float32, device=dev)
-    s64 = icp.from_points(src_pts, dtype=torch.float64, device="cpu")
-    t64 = icp.from_points(dst_pts, dtype=torch.float64, device="cpu")
     guess = icp.identity(3, dtype=torch.float32, device=dev)
-    cfg = icp.DriverConfig(max_iterations=100, angle_tolerance=1e-4, translation_tolerance=1e-4)
+    cfg = icp.DriverConfig(**QUEEN_DRIVER)
     before = _mean_nn(torch, guess, source, target)
     launches = {}
-    for name, config in (("trimmed", icp.Config(max_distance=1.0)), ("vanilla", icp.Config())):
-        method = icp.from_method(name, 3, config)
+    for name, config in QUEEN_METHODS:
+        method = icp.from_method(name, 3, icp.Config(**config))
 
         def run():
             out, _ = icp.converge(method, source, target, guess, cfg)
@@ -621,16 +664,14 @@ def _phase_3d(torch, np, icp, dev) -> dict:
                    f"{', '.join(f'{x * 1e3:.2f}' for x in times)}), mean NN distance "
                    f"{before:.6e} -> {after:.6e}, launches {launches[name]}")
         _say("3d-trace", f"{name}: " + _trace(torch, run))
-        t0 = time.perf_counter()
-        cpu, _ = icp.converge(method, s64, t64, icp.identity(3, device="cpu"), cfg)
-        cpu_s = time.perf_counter() - t0
+        cpu = refs[f"3d {name}"].get()
         rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-        max_dt = float(torch.linalg.vector_norm(trans.double().cpu() - cpu.transform.translation))
+        max_dt = float(np.linalg.norm(trans.double().cpu().numpy() - cpu["translation"]))
         col_drift = float((torch.linalg.vector_norm(rot.double(), dim=-2) - 1).abs().max())
         _say("3d-pose", f"{name}: CUDA f32 (quat) vs CPU f64 (svd): |dt| {max_dt:.3e} m (gate "
                         f"{POSE_AGREEMENT_TOL_M}), rotation max ||col|-1| {col_drift:.3e}, "
-                        f"iterations {int(result.iteration_count)} vs "
-                        f"{int(cpu.iteration_count)}; CPU run {cpu_s:.1f} s, process peak RSS "
+                        f"iterations {int(result.iteration_count)} vs {cpu['iterations']}; CPU "
+                        f"run {cpu['seconds']:.1f} s (a worker process), process peak RSS "
                         f"{rss_gib:.2f} GiB")
         if not (max_dt <= POSE_AGREEMENT_TOL_M and col_drift <= 1e-5):
             raise AssertionError(f"{name} 3D pose agreement failed: {max_dt}, {col_drift}")
@@ -2441,7 +2482,7 @@ EXAMPLES = {"register_pair": "translation:", "serving_demo": "max pose error",
             "slam_pipeline": "optimized end-pose drift",
             "place_recognition": "descriptor search", "odometry_sequence": "optimized ATE",
             "odometry_sequence_3d": "after closure", "online_slam": "stream done",
-            "multi_session_merge": "merged sessions:"}
+            "multi_session_merge": "merged sessions:", "fleet_registration": "pairs on"}
 EXAMPLE_TIMEOUT_S = 400
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")  # gitignored
 
@@ -2865,6 +2906,461 @@ def _phase_slam_surfaces(torch, np, icp, dev, slam_refs, card_pool, run, main, f
     return paths
 
 
+# Phase 13: the parallel layer.  (a) runs at world size 1 on NCCL in a
+# process of its own (the process group dies with it); (b) four gloo ranks on
+# the one card, started beside (a) and released when (a) is done.  (a) times
+# nothing until every rank of (b) has finished its set-up (CUDA, the process
+# group, the inputs) and sits idle waiting for the release.
+PARALLEL_DIR = os.path.join(SCRATCH, "parallel")
+PARALLEL_RANKS = 4
+PARALLEL_TIMEOUT_S = 240
+BIG_CLOUD_ITERATIONS = 10  # tests/test_parallel.py's big-cloud budget
+# The gate (on the reference's sqrt of the distance) trims 54.4% of the queen
+# matches at the start and none by the tenth iterate (CPU float64); 1.0 would
+# trim none.
+BIG_CLOUD_GATE = 0.5
+# Big cloud against the card's method iterate: the same arithmetic summed in
+# another order (one packed all-reduce of one-pass sums, the method's
+# centred two-pass covariance).  CPU float32 runs of the two differ on the
+# queen pair by 1.8e-6 m and 1.1e-6 in rotation ungated, by 8.5e-6 m and
+# 3.2e-6 at the gate; the bound is 2e-5.
+FLOAT32_ROUNDING = 2e-5
+# The kernels each phase-13 path must launch (by the path's name prefix).
+PARALLEL_KERNELS = {"fleet": ("K2",), "converge": ("K1", "K2"), "big cloud": ("K1",),
+                    "sharded_nn": ("K2",), "ring_nn": ("K2",)}
+
+
+def _phase4_inputs(torch, np, icp, dev):
+    """Phase 4's inputs: ``(a_pts, b_pts, angles, shifts)``, scan1's points
+    and the seeded guesses as numpy arrays, and ``(source, target, guess,
+    method, cfg)``, the 1,024 lanes on the card, the method and the bench's
+    driver config (full resolution: 50 iterations, 0.1 deg, 0.01 m)."""
+    data = os.path.join(REPO, "ex_data")
+    a_pts = icp.io.parse_lidar_scan_array(f"{data}/scan1/first.csv")
+    b_pts = icp.io.parse_lidar_scan_array(f"{data}/scan1/second.csv")
+    a1 = icp.from_points(a_pts, capacity=CAPACITY, dtype=torch.float32, device=dev)
+    b1 = icp.from_points(b_pts, capacity=CAPACITY, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    angles = rng.uniform(-0.05, 0.05, BATCH).astype(np.float32)
+    shifts = rng.uniform(-0.2, 0.2, (BATCH, 2)).astype(np.float32)
+    guess = icp.from_angle_2d(torch.tensor(angles, device=dev), torch.tensor(shifts, device=dev))
+    method = icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9))
+    cfg = icp.DriverConfig(
+        max_iterations=50, angle_tolerance=0.1 * math.pi / 180, translation_tolerance=0.01
+    )
+    return ((a_pts, b_pts, angles, shifts),
+            (icp.stack([a1] * BATCH), icp.stack([b1] * BATCH), guess, method, cfg))
+
+
+def _queen_points(torch, icp, dev):
+    return tuple(torch.tensor(icp.read_ply(os.path.join(REPO, p)), dtype=torch.float32,
+                              device=dev) for p in QUEEN)
+
+
+def _big_cloud_method(icp, gate):
+    """The unsharded twin of big_cloud: vanilla 3D, or trimmed 3D at the gate."""
+    if gate is None:
+        return icp.from_method("vanilla", 3, icp.Config(solver="svd"))
+    return icp.from_method("trimmed", 3, icp.Config(solver="svd", max_distance=gate))
+
+
+def _phase13_reference(gate) -> dict:
+    """Pool task: the method twin of big_cloud on the queen pair, CPU
+    float64, BIG_CLOUD_ITERATIONS iterates (phase 13a's CPU gate)."""
+    sys.path.insert(0, REPO)
+    import icp_tpu_torch as icp
+
+    src, dst = (icp.read_ply(os.path.join(REPO, p)) for p in QUEEN)
+    method = _big_cloud_method(icp, gate)
+    state = method.init(icp.from_points(src, device="cpu"), icp.from_points(dst, device="cpu"),
+                        icp.identity(3, device="cpu"))
+    for _ in range(BIG_CLOUD_ITERATIONS):
+        state = method.iterate(state)
+    return {"translation": state.transform.translation.numpy(),
+            "rotation": state.transform.rotation.numpy()}
+
+
+def _max_diff(a, b) -> float:
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def _interleaved(torch, runs: dict, reps: int = 3) -> dict:
+    """Seconds per call of each run, interleaved: a warm-up round, then
+    ``reps`` timed rounds."""
+    times = {name: [] for name in runs}
+    for rep in range(reps + 1):
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def _counted(torch, run):
+    """``run()`` with the kernel counts zeroed just before and read just after."""
+    _reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, _read_launches()
+
+
+def _parallel_world1(out_dir: str) -> None:
+    """Phase 13a in its own process: the fleet example, the main path's lanes
+    through the sharded converge, big cloud, the NN merges and the
+    edge-sharded PCG at world size 1 on NCCL.  Prints its lines, saves its
+    poses for 13b and the CPU gate, and prints the paths' launches as the
+    last line (JSON)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import parallel as par
+    from icp_tpu_torch import pose_graph
+    from icp_tpu_torch.examples import fleet_registration
+    from icp_tpu_torch.ops import pallas_nn
+
+    dev = torch.device("cuda", 0)
+    paths, saved = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap() -> str:
+        now = time.perf_counter()
+        took, clock[0] = now - clock[0], now
+        return f"; {took:.1f} s"
+    torch.cuda.init()
+    for r in range(PARALLEL_RANKS):
+        _wait_for(os.path.join(out_dir, f"ready{r}"), PARALLEL_TIMEOUT_S / 2)
+    _say("parallel", f"13b's {PARALLEL_RANKS} ranks set up and idle" + lap())
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, paths["fleet (B=64, world 1)"] = _counted(torch, fleet_registration.main)
+    _say("parallel", f"fleet_registration (full size, world of one): "
+                     f"{'; '.join(buf.getvalue().split(chr(10))[:2])}; "
+                     f"{time.perf_counter() - t0:.2f} s, launches {paths['fleet (B=64, world 1)']}")
+
+    mesh = par.make_mesh()
+    _say("parallel", f"mesh {tuple(mesh.mesh.shape)} over {torch.distributed.get_world_size()} "
+                     f"rank, backend {torch.distributed.get_backend()}, torch {torch.__version__}")
+
+    # The main path's lanes: sharded (1, 1), points off and on, vs converge.
+    source, target, guess, method, cfg = _phase4_inputs(torch, np, icp, dev)[1]
+    fns = {sp: par.make_sharded_converge_fn(method, cfg, mesh, shard_points=sp)
+           for sp in (False, True)}
+    blocks = {sp: par.shard_batch((source, target, guess), mesh, sp) for sp in (False, True)}
+    runs = {"converge": lambda: icp.converge(method, source, target, guess, cfg)[0],
+            "sharded": lambda: fns[False](*blocks[False])[0],
+            "sharded points": lambda: fns[True](*blocks[True])[0]}
+    want = runs["converge"]()
+    for name in ("sharded", "sharded points"):
+        got, paths[f"converge {name} (1, 1)"] = _counted(torch, runs[name])
+        equal = (torch.equal(got.iteration_count, want.iteration_count)
+                 and torch.equal(got.transform.rotation, want.transform.rotation)
+                 and torch.equal(got.transform.translation, want.transform.translation))
+        if not equal:
+            raise AssertionError(f"{name}: iterations or poses differ from converge")
+    times = _interleaved(torch, runs, reps=5)
+    _say("parallel", f"scan1 trimmed B={BATCH} (phase 4's lanes, full resolution): sharded "
+                     "(1, 1) points off and on: iterations and poses bit-equal to converge; "
+                     + ", ".join(f"{name} {BATCH / float(np.median(t)):.2f} pairs/s (median of "
+                                 f"{len(t)}: {', '.join(f'{x * 1e3:.2f}' for x in t)} ms)"
+                                 for name, t in times.items())
+                     + f"; launches {paths['converge sharded points (1, 1)']}" + lap())
+    # converge itself on a quarter of the lanes as one batch (13b's batch).
+    quarter = slice(0, BATCH // 4)
+    part, _ = icp.converge(method, icp.PointCloud(source.points[quarter], source.count[quarter]),
+                           icp.PointCloud(target.points[quarter], target.count[quarter]),
+                           icp.RigidTransform(guess.rotation[quarter], guess.translation[quarter]),
+                           cfg)
+    same = part.iteration_count == want.iteration_count[quarter]
+    moved = torch.linalg.vector_norm(part.transform.translation
+                                     - want.transform.translation[quarter], dim=-1)
+    _say("parallel", f"converge on lanes 0-{BATCH // 4 - 1} as one batch against the same lanes in "
+                     f"the batch of {BATCH} (no sharding; float32 sums split by batch size): "
+                     f"iterations equal on {int(same.sum())}/{BATCH // 4}, max |dt| "
+                     f"{float(moved[same].max()):.3e} m on those, {float(moved.max()):.3e} m over "
+                     "all")
+    saved.update(lanes_iters=want.iteration_count.cpu().numpy(),
+                 lanes_rot=want.transform.rotation.cpu().numpy(),
+                 lanes_trans=want.transform.translation.cpu().numpy())
+
+    # Big cloud on the queen pair against the card's method iterate.
+    qa, qb = _queen_points(torch, icp, dev)
+    ones = torch.ones(qa.shape[0], dtype=torch.bool, device=dev)
+    start_sq = pallas_nn.nearest_neighbors_pallas(qa, qb, ones)[0]
+    trimmed = float((torch.sqrt(torch.sqrt(start_sq)) > BIG_CLOUD_GATE).double().mean())
+    _say("parallel", f"big cloud gate {BIG_CLOUD_GATE}: trims {trimmed:.2%} of the queen matches "
+                     "at the start")
+    if not trimmed > 0:
+        raise AssertionError(f"the gate {BIG_CLOUD_GATE} trims no queen match")
+    for gate in (None, BIG_CLOUD_GATE):
+        label = "ungated" if gate is None else f"gated {gate}"
+        results = {}
+        for mode in ("gather", "ring"):
+            def run(mode=mode, gate=gate):
+                return par.big_cloud_converge(
+                    qa, ones, qb, ones, icp.identity(3, dtype=torch.float32, device=dev), mesh,
+                    max_iterations=BIG_CLOUD_ITERATIONS, max_distance=gate, solver="svd",
+                    target_mode=mode)
+            results[mode], paths[f"big cloud {mode} {label}"] = _counted(torch, run)
+            t = _interleaved(torch, {mode: run})[mode]
+            results[mode] += (float(np.median(t)) * 1e3 / BIG_CLOUD_ITERATIONS,)
+        (tf, its, mean_nn, ms_g), (tf_r, its_r, nn_r, ms_r) = results["gather"], results["ring"]
+        if not (its == its_r == BIG_CLOUD_ITERATIONS and torch.equal(tf.rotation, tf_r.rotation)
+                and torch.equal(tf.translation, tf_r.translation) and torch.equal(mean_nn, nn_r)):
+            raise AssertionError(f"big cloud {label}: ring differs from gather at world size 1")
+        twin = _big_cloud_method(icp, gate)
+        state = twin.init(icp.from_points(qa.cpu().numpy(), dtype=torch.float32, device=dev),
+                          icp.from_points(qb.cpu().numpy(), dtype=torch.float32, device=dev),
+                          icp.identity(3, dtype=torch.float32, device=dev))
+        for _ in range(BIG_CLOUD_ITERATIONS):
+            state = twin.iterate(state)
+        dt = _max_diff(tf.translation, state.transform.translation)
+        dr = _max_diff(tf.rotation, state.transform.rotation)
+        _say("parallel", f"big cloud queen (10,720 points) {label}, {BIG_CLOUD_ITERATIONS} "
+                         f"iterations svd: gather {ms_g:.3f} ms/iteration, ring {ms_r:.3f} "
+                         f"(bit-equal); against the card's {twin.name} 3D iterate max |dt| "
+                         f"{dt:.3e} m, |dR| {dr:.3e} (bound {FLOAT32_ROUNDING:g}); launches "
+                         f"{paths[f'big cloud gather {label}']} / "
+                         f"{paths[f'big cloud ring {label}']}" + lap())
+        if not (dt <= FLOAT32_ROUNDING and dr <= FLOAT32_ROUNDING):
+            raise AssertionError(f"big cloud {label}: beyond float32 rounding of the method")
+        key = "ungated" if gate is None else "gated"
+        saved.update({f"big_{key}_trans": tf.translation.cpu().numpy(),
+                      f"big_{key}_rot": tf.rotation.cpu().numpy()})
+
+    # The NN merges at the queen shape against K2 on the whole target.
+    k2 = pallas_nn.nearest_neighbors_pallas(qa, qb, ones)
+    for name, fn in (("sharded_nn", par.sharded_nearest_neighbors),
+                     ("ring_nn", par.ring_nearest_neighbors)):
+        (sq, idx), paths[f"{name} queen"] = _counted(torch, lambda fn=fn: fn(qa, qb, ones, mesh))
+        if not (torch.equal(sq, k2[0]) and torch.equal(idx, k2[1])):
+            raise AssertionError(f"{name}: differs from K2")
+    _say("parallel", f"sharded_nn and ring_nn at (10720, 10720, 3): idx and sq equal to K2; "
+                     f"launches {paths['sharded_nn queen']} / {paths['ring_nn queen']}" + lap())
+
+    # m3500 through shard_over_edges + PCG against the unsharded solve.
+    name, iters, cg, bound = next(c for c in G2O_CELLS if c[0] == "m3500")
+    graph = icp.io.read_g2o(os.path.join(REPO, MANHATTAN, f"{name}.g2o"), device=dev)
+    sharded = pose_graph.shard_over_edges(graph, mesh)
+    solves = {"unsharded": lambda: pose_graph.optimize(graph, iterations=iters, solver="pcg",
+                                                       cg_iterations=cg),
+              "edge-sharded": lambda: pose_graph.optimize(sharded, iterations=iters,
+                                                          solver="pcg", cg_iterations=cg)}
+    # The counted solves are the warm-up; three timed rounds follow.
+    out = {k: _counted(torch, run) for k, run in solves.items()}
+    paths["edge-sharded pcg m3500"] = out["edge-sharded"][1]
+    (opt, costs), (opt_s, costs_s) = out["unsharded"][0], out["edge-sharded"][0]
+    times, again = {k: [] for k in solves}, []
+    for _ in range(3):
+        for k, run in solves.items():
+            t1 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t1)
+            if k == "unsharded":
+                again.append(result[0])
+    dt = _max_diff(opt_s.poses.translation, opt.poses.translation)
+    repeat = _max_diff(again[0].poses.translation, opt.poses.translation)
+    chi0, chi = float(costs_s[0]), float(costs_s[-1])
+    _say("parallel", f"m3500 pcg {iters} x {cg} edge-sharded (1 rank): chi2 {chi0:.6g} -> "
+                     f"{chi:.6g} (unsharded {float(costs[-1]):.6g}); max |dt| {dt:.3e} m from "
+                     f"the unsharded solve (gate {POSE_AGREEMENT_TOL_M}; two unsharded solves "
+                     f"differ by {repeat:.3e}, index_add_ order); ms per GN iteration "
+                     "(median of 3 interleaved solves; each solve's) "
+                     + ", ".join(f"{k} {float(np.median(t)) * 1e3 / iters:.2f} ("
+                                 + ", ".join(f"{x * 1e3 / iters:.2f}" for x in t) + ")"
+                                 for k, t in times.items()) + lap())
+    if not (dt <= POSE_AGREEMENT_TOL_M and chi < G2O_DROP[name] * chi0
+            and chi < bound * graph.num_edges):
+        raise AssertionError(f"edge-sharded m3500 missed its gates: {dt}, {chi0} -> {chi}")
+    # Every path but the pose graph's runs its kernel (the graph has none).
+    for path, cell in paths.items():
+        need = [k for prefix, kernels in PARALLEL_KERNELS.items() if path.startswith(prefix)
+                for k in kernels]
+        if any(cell[k] <= 0 for k in need):
+            raise AssertionError(f"{path} did not launch {need}: {cell}")
+    np.savez(os.path.join(out_dir, "world1.npz"), **saved)
+    torch.distributed.destroy_process_group()
+    print(json.dumps(paths), flush=True)
+
+
+def _wait_for(path: str, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.05)
+
+
+def _parallel_gloo(rank: int, out_dir: str, port: str) -> None:
+    """Phase 13b, one of PARALLEL_RANKS gloo ranks on the one card: set up,
+    wait for 13a, then the NN merges (ties too), big cloud over 4 point
+    blocks and the lanes over 4 data ranks against 13a."""
+    import numpy as np
+    import torch
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(PARALLEL_RANKS))
+    torch.cuda.set_device(0)
+    sys.path.insert(0, REPO)
+    import icp_tpu_torch as icp
+    from icp_tpu_torch import parallel as par
+    from icp_tpu_torch.ops import pallas_nn
+
+    dev = torch.device("cuda", 0)
+    par.initialize_multihost(backend="gloo", timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    points = par.make_mesh(data=1, points=PARALLEL_RANKS)
+    data = par.make_mesh(data=PARALLEL_RANKS, points=1)
+    group = par.mesh.axis_group(points, par.POINT_AXIS)
+    blocks = par.Layout(points, (par.POINT_AXIS,))
+    qa, qb = _queen_points(torch, icp, dev)
+    ones = torch.ones(qa.shape[0], dtype=torch.bool, device=dev)
+    source, target, guess, method, cfg = _phase4_inputs(torch, np, icp, dev)[1]
+    lines = [f"backends: points {torch.distributed.get_backend(group)}, data "
+             f"{torch.distributed.get_backend(par.mesh.axis_group(data, par.DATA_AXIS))}"]
+    torch.cuda.synchronize()
+    open(os.path.join(out_dir, f"ready{rank}"), "w").close()  # 13a starts timing
+    _wait_for(os.path.join(out_dir, "go"), PARALLEL_TIMEOUT_S)
+    t0 = time.perf_counter()
+    with np.load(os.path.join(out_dir, "world1.npz")) as f:
+        world1 = dict(f)
+
+    # Ties: every target row appears once in each of the four blocks.
+    tied = qb[: qb.shape[0] // PARALLEL_RANKS].repeat(PARALLEL_RANKS, 1)
+    for label, tgt in (("queen", qb), ("ties", tied)):
+        want = pallas_nn.nearest_neighbors_pallas(qa, tgt, ones)
+        t_blk, m_blk = par.local_block(tgt, blocks), par.local_block(ones, blocks)
+        got_s = par.sharded_nearest_neighbors(qa, t_blk, m_blk, points)
+        got_r = par.ring_nearest_neighbors(par.local_block(qa, blocks), t_blk, m_blk, points)
+        got_r = tuple(par.comm.all_gather(x, group) for x in got_r)
+        for name, (sq, idx) in (("sharded_nn", got_s), ("ring_nn", got_r)):
+            if not (torch.equal(sq, want[0]) and torch.equal(idx, want[1])):
+                raise AssertionError(f"{name} {label} over {PARALLEL_RANKS} blocks differs from K2")
+        if label == "ties" and int(want[1].max()) >= tgt.shape[0] // PARALLEL_RANKS:
+            raise AssertionError("ties: a later block's copy won")
+    lines.append(f"sharded_nn and ring_nn with the queen targets in {PARALLEL_RANKS} blocks, "
+                 "and with every target in each block (ties): idx and sq equal to K2 on the "
+                 "whole target, the first block's copy wins the ties")
+
+    a_blk, b_blk = par.local_block(qa, blocks), par.local_block(qb, blocks)
+    m_blk = par.local_block(ones, blocks)
+    for mode in ("gather", "ring"):
+        tf, its, _ = par.big_cloud_converge(
+            a_blk, m_blk, b_blk, m_blk, icp.identity(3, dtype=torch.float32, device=dev), points,
+            max_iterations=BIG_CLOUD_ITERATIONS, solver="svd", target_mode=mode)
+        dt = _max_diff(tf.translation, torch.as_tensor(world1["big_ungated_trans"]))
+        dr = _max_diff(tf.rotation, torch.as_tensor(world1["big_ungated_rot"]))
+        lines.append(f"big cloud {mode} over {PARALLEL_RANKS} point blocks: max |dt| {dt:.3e} m, "
+                     f"|dR| {dr:.3e} from 13a (bound {FLOAT32_ROUNDING:g})")
+        if not (its == BIG_CLOUD_ITERATIONS and dt <= FLOAT32_ROUNDING and dr <= FLOAT32_ROUNDING):
+            raise AssertionError(f"big cloud {mode} over {PARALLEL_RANKS} blocks: {dt}, {dr}")
+
+    # The lanes over 4 data ranks.  Each rank's lanes are one converge batch
+    # of BATCH / 4: the gate is that batch's unsharded converge, bit for
+    # bit, gathered from every rank.  Against 13a's one batch of BATCH the
+    # float32 sums run in a batch-size-dependent order (cuBLAS' batched GEMM
+    # and the reduce kernels pick their split by batch; 13a shows converge
+    # itself moving so), so lanes are held there to float32's limits only:
+    # the pose gate where the lane stops on the same iteration, the driver's
+    # translation tolerance (the size of one last step) where it does not.
+    fn = par.make_sharded_converge_fn(method, cfg, data)
+    lanes = par.shard_batch((source, target, guess), data)
+    result, _ = fn(*lanes)
+    alone, _ = icp.converge(method, *lanes, cfg)
+    data_group = par.mesh.axis_group(data, par.DATA_AXIS)
+    exact = all(torch.equal(x, par.comm.all_gather(y, data_group)) for x, y in (
+        (result.iteration_count, alone.iteration_count),
+        (result.transform.rotation, alone.transform.rotation),
+        (result.transform.translation, alone.transform.translation)))
+    got = result.transform.translation.cpu().numpy()
+    dt = np.linalg.norm(got - world1["lanes_trans"], axis=-1)
+    same = result.iteration_count.cpu().numpy() == world1["lanes_iters"]
+    lines.append(f"scan1 trimmed B={BATCH} over {PARALLEL_RANKS} data ranks: iterations and poses "
+                 f"bit-equal to converge on each rank's {BATCH // PARALLEL_RANKS} lanes as one "
+                 f"batch: {exact}; against 13a's batch of {BATCH}: iterations equal on "
+                 f"{int(same.sum())}/{BATCH} lanes, max |dt| {dt[same].max():.3e} m on those "
+                 f"(gate {POSE_AGREEMENT_TOL_M}), {dt.max():.3e} m over all (gate "
+                 f"{cfg.translation_tolerance})")
+    if not (exact and dt[same].max() <= POSE_AGREEMENT_TOL_M
+            and dt.max() <= cfg.translation_tolerance):
+        raise AssertionError(f"data-sharded lanes: exact {exact}, {dt[same].max()}, {dt.max()} m")
+    lines.append(f"{time.perf_counter() - t0:.2f} s after the release (four processes share one "
+                 "card: this measures nothing about scaling)")
+    torch.distributed.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(lines), flush=True)
+
+
+def _phase_parallel(refs) -> dict:
+    """Phase 13: start 13b's ranks, run 13a, gate 13a's big cloud against
+    the CPU float64 runs, release 13b and read it.  Returns 13a's paths'
+    launches."""
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    for name in ("go", "world1.npz", *(f"ready{r}" for r in range(PARALLEL_RANKS))):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(PARALLEL_DIR, name))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    logs = [open(os.path.join(PARALLEL_DIR, f"gloo{r}.log"), "w+") for r in range(PARALLEL_RANKS)]
+    ranks = [subprocess.Popen([sys.executable, __file__, "--parallel-gloo", str(r), PARALLEL_DIR,
+                               port], stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+             for r in range(PARALLEL_RANKS)]
+    try:
+        t0 = time.perf_counter()
+        world1 = subprocess.run([sys.executable, __file__, "--parallel-world1", PARALLEL_DIR],
+                                capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S,
+                                cwd=REPO)
+        if world1.returncode != 0:
+            failed = []
+            for r, proc in enumerate(ranks):
+                if proc.poll() not in (None, 0):
+                    logs[r].seek(0)
+                    failed.append(f"13b rank {r} exited {proc.returncode}:\n"
+                                  f"{logs[r].read()[-3000:]}")
+            raise AssertionError(f"phase 13a failed:\n{world1.stdout[-3000:]}\n"
+                                 f"{world1.stderr[-3000:]}\n" + "\n".join(failed))
+        out = world1.stdout.strip().splitlines()
+        for line in out[:-1]:
+            print(line, flush=True)
+        paths = json.loads(out[-1])
+        import numpy as np
+
+        with np.load(os.path.join(PARALLEL_DIR, "world1.npz")) as f:
+            card = dict(f)
+        for key, gate in (("ungated", None), ("gated", BIG_CLOUD_GATE)):
+            cpu = refs[f"phase13 {key}"].get()
+            dt = float(np.abs(card[f"big_{key}_trans"] - cpu["translation"]).max())
+            _say("parallel", f"big cloud {key}: max |dt| {dt:.3e} m from the CPU float64 "
+                             f"method iterate (gate {POSE_AGREEMENT_TOL_M})")
+            if not dt <= POSE_AGREEMENT_TOL_M:
+                raise AssertionError(f"big cloud {key}: {dt} m from CPU float64")
+        _say("parallel", f"13a {time.perf_counter() - t0:.2f} s")
+        open(os.path.join(PARALLEL_DIR, "go"), "w").close()
+        t0 = time.perf_counter()
+        for r, proc in enumerate(ranks):
+            code = proc.wait(timeout=PARALLEL_TIMEOUT_S)
+            if code != 0:
+                logs[r].seek(0)
+                raise AssertionError(f"phase 13b rank {r} exited {code}:\n{logs[r].read()[-3000:]}")
+        logs[0].seek(0)
+        for line in json.loads(logs[0].read().strip().splitlines()[-1]):
+            _say("parallel-gloo", line)
+        _say("parallel", f"13b {time.perf_counter() - t0:.2f} s after the release")
+    finally:
+        for proc in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    return paths
+
+
 def main() -> int:
     import multiprocessing
 
@@ -2894,11 +3390,17 @@ def main() -> int:
     # priority, run beside the untimed rest of phases 11 and 12.
     card_pool = context.Pool(len(SLAM_MODES))
     try:
-        refs = {task: pool.apply_async(_phase9_reference, (task,)) for task in REFERENCE_TASKS}
+        # Phase 6's CPU runs first: phase 6 reads them within a minute.
+        refs = {f"3d {name}": pool.apply_async(_phase6_reference, (name,))
+                for name, _ in QUEEN_METHODS}
+        refs.update({task: pool.apply_async(_phase9_reference, (task,))
+                     for task in REFERENCE_TASKS})
         for name, *_ in G2O_CELLS:
             for dtype in ("float64", "float32"):
                 refs[f"g2o {name} {dtype}"] = pool.apply_async(
                     _phase10_reference, ("g2o", (name, dtype)))
+        for key, gate in (("ungated", None), ("gated", BIG_CLOUD_GATE)):
+            refs[f"phase13 {key}"] = pool.apply_async(_phase13_reference, (gate,))
         slam_refs = {(mode, "float64"): slam_pool.apply_async(_phase11_reference,
                                                                (mode, "float64"))
                      for mode in SLAM_MODES}
@@ -2988,20 +3490,8 @@ def _phases(refs, pool, slam_refs, card_pool, native_build) -> int:
     phase_done("3 kernels")
 
     # Phase 4: the main path.
-    data = os.path.join(REPO, "ex_data")
-    a_pts = icp.io.parse_lidar_scan_array(f"{data}/scan1/first.csv")
-    b_pts = icp.io.parse_lidar_scan_array(f"{data}/scan1/second.csv")
-    a1 = icp.from_points(a_pts, capacity=CAPACITY, dtype=torch.float32, device=dev)
-    b1 = icp.from_points(b_pts, capacity=CAPACITY, dtype=torch.float32, device=dev)
-    source, target = icp.stack([a1] * BATCH), icp.stack([b1] * BATCH)
-    rng = np.random.default_rng(0)
-    angles = rng.uniform(-0.05, 0.05, BATCH).astype(np.float32)
-    shifts = rng.uniform(-0.2, 0.2, (BATCH, 2)).astype(np.float32)
-    guess = icp.from_angle_2d(torch.tensor(angles, device=dev), torch.tensor(shifts, device=dev))
-    method = icp.from_method("trimmed", 2, icp.Config(overlap_rate=0.9))
-    cfg = icp.DriverConfig(
-        max_iterations=50, angle_tolerance=0.1 * math.pi / 180, translation_tolerance=0.01
-    )
+    (a_pts, b_pts, angles, shifts), (source, target, guess, method, cfg) = _phase4_inputs(
+        torch, np, icp, dev)
 
     def run():
         out, _ = icp.converge_multiscale(
@@ -3070,7 +3560,7 @@ def _phases(refs, pool, slam_refs, card_pool, native_build) -> int:
 
     # Phase 6: the 3D path; phase 7: the 2D method matrix.
     paths = {"trimmed_2d_multiscale": launches}
-    for name, cell in _phase_3d(torch, np, icp, dev).items():
+    for name, cell in _phase_3d(torch, np, icp, dev, refs).items():
         paths[f"{name}_3d"] = cell
     phase_done("6 3d path")
     for name, cell in _phase_matrix(torch, np, icp, dev).items():
@@ -3090,6 +3580,8 @@ def _phases(refs, pool, slam_refs, card_pool, native_build) -> int:
                                       (main_device, main_host, launches), timed["fine"],
                                       native_build))
     phase_done("11-12 slam and surfaces")
+    paths.update(_phase_parallel(refs))
+    phase_done("13 parallel")
     _say("seconds", ", ".join(f"phase {k} {v}" for k, v in phase_s.items()))
 
     def entry(k, name, replaces):
@@ -3128,4 +3620,10 @@ def _phases(refs, pool, slam_refs, card_pool, native_build) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # Phase 13's own processes (the script itself takes no arguments).
+    if sys.argv[1:2] == ["--parallel-world1"]:
+        _parallel_world1(sys.argv[2])
+    elif sys.argv[1:2] == ["--parallel-gloo"]:
+        _parallel_gloo(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        sys.exit(main())

@@ -17,7 +17,10 @@ registration; ``robustness``: the outlier-injection protocol; g2o files in
 offline SLAM (``slam``: ``OnlineSlam``, ``run_slam``, ``merge_sessions``,
 ``relocalize``; ``OnlineSlam(async_refine=True)`` solves on a worker
 thread), checkpoints (``checkpoint``, ``resilient``), offline rendering
-(``vis``), the profiler and NVTX ranges (``utils.profiling``), the
+(``vis``), the profiler and NVTX ranges (``utils.profiling``), the distributed layer
+(``parallel``: a ``(data, points)`` device mesh over ``torch.distributed``,
+sharded batched registration, split-target and ring NN, big-cloud
+registration; ``pose_graph.shard_over_edges``), the
 scan/sweep/PLY readers (with the native CSV loader, ``utils.native``), a CLI
 (``python -m icp_tpu_torch.cli``: ``register``, ``view``, ``bench``,
 ``odometry``, ``graph``) and examples (``python -m
@@ -62,6 +65,7 @@ from . import (
     multiscale,
     odometry,
     ops,
+    parallel,
     pose_graph,
     resilient,
     robustness,
@@ -128,6 +132,7 @@ __all__ = [
     "odometry",
     "ops",
     "pad_to",
+    "parallel",
     "pose_graph",
     "parse_lidar_scan",
     "read_ply",

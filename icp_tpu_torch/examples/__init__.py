@@ -11,7 +11,9 @@ from the repository's root:
 * ``odometry_sequence_3d``: the ``ex_data/seq3d`` PLYs, GICP and an SE(3)
   closure;
 * ``online_slam``: scans one at a time through ``slam.OnlineSlam``;
-* ``multi_session_merge``: two laps mapped apart, merged into one map.
+* ``multi_session_merge``: two laps mapped apart, merged into one map;
+* ``fleet_registration``: a batch of pairs over a device mesh
+  (``icp_tpu_torch.parallel``), one rank alone or several under ``torchrun``.
 
 They run on the CUDA card and fail without one.  The environment selects
 the rest: ``ICP_EXAMPLES_CPU=1`` runs on the CPU (float64),

@@ -22,7 +22,10 @@ Euclidean (``feature_aware.h:40-46``).
 
 The blended argmin is dense ``(N, M)`` plain torch, as in the JAX package,
 which computes it outside any kernel: at B = 256 and N = M = 1024 in
-float32, each ``(B, N, M)`` tensor is 1 GiB.
+float32, each ``(B, N, M)`` tensor is 1 GiB.  Under a points group's row
+split (:func:`icp_tpu_torch.ops.nn.row_split`) each rank blends its block of
+rows, the point-distance maximum is reduced over the group before the
+normalization, and the matches are gathered back.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from .. import geometry
 from ..cloud import PointCloud
 from ..config import Config
 from ..geometry import RigidTransform, masked_centroid
-from ..ops.nn import pairwise_sq_dists
+from ..ops.nn import pairwise_sq_dists, row_split
 from ..ops.rigid_fit import fit_rigid_indexed
 from .base import Method
 from .trimmed import trim_weights
@@ -95,10 +98,13 @@ def pairwise_euclid(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(sq, min=0.0))
 
 
-def _normalize_by_max(dists: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _normalize_by_max(dists: torch.Tensor, valid: torch.Tensor, reduce_max=None) -> torch.Tensor:
     """Divide by the maximum over valid entries when it exceeds 1e-6
-    (``feature_aware.cpp:53-57,130-133``)."""
+    (``feature_aware.cpp:53-57,130-133``).  ``reduce_max`` takes the
+    maximum of a row block over the other blocks' ranks (a row split)."""
     mx = dists.masked_fill(~valid, -float("inf")).amax(dim=(-2, -1), keepdim=True)
+    if reduce_max is not None:
+        mx = reduce_max(mx)
     one = torch.ones((), dtype=dists.dtype, device=dists.device)
     scale = torch.where(mx > MIN_NORM_THRESHOLD, 1.0 / torch.where(mx > 0, mx, one), one)
     return dists * scale
@@ -114,14 +120,27 @@ def create(config: Config) -> Method:
     symmetric_neighbors = config.get("symmetric_neighbors", DEFAULT_SYMMETRIC_NEIGHBORS)
     neighbor_weight = 1.0 - feature_weight  # ``feature_aware.cpp:29``
 
-    def _compute_matches(a_current, feature_dists, src: PointCloud, tgt: PointCloud):
-        valid = _valid_matrix(src, tgt)
-        dists = _normalize_by_max(torch.sqrt(pairwise_sq_dists(a_current, tgt.points)), valid)
-        blended = neighbor_weight * dists + feature_weight * feature_dists
+    def _match_rows(a_rows, fd_rows, smask_rows, tgt: PointCloud, reduce_max=None):
+        valid = smask_rows[..., :, None] & tgt.mask[..., None, :]
+        dists = _normalize_by_max(torch.sqrt(pairwise_sq_dists(a_rows, tgt.points)), valid,
+                                  reduce_max)
+        blended = neighbor_weight * dists + feature_weight * fd_rows
         blended = blended.masked_fill(~valid, float("inf"))
         # torch.min, like jnp.argmin, takes the first of equal minima.
         cost, idx = torch.min(blended, dim=-1)
-        return idx.to(torch.int32), cost.masked_fill(~src.mask, float("inf"))
+        return idx.to(torch.int32), cost.masked_fill(~smask_rows, float("inf"))
+
+    def _compute_matches(a_current, feature_dists, src: PointCloud, tgt: PointCloud):
+        split = row_split()
+        if split is None:
+            return _match_rows(a_current, feature_dists, src.mask, tgt)
+        # A points group's row split: this rank's rows, the global maximum
+        # over every rank's rows, then the rows gathered back.
+        row = a_current.dim() - 2
+        n = a_current.shape[row]
+        idx, cost = _match_rows(split.take(a_current, row), split.take(feature_dists, row),
+                                split.take(src.mask, row), tgt, split.max)
+        return split.join(idx, row, n), split.join(cost, row, n)
 
     def init(
         source: PointCloud, target: PointCloud, guess: RigidTransform

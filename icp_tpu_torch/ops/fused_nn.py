@@ -13,6 +13,9 @@ A CUDA tensor always goes to the kernel; a CPU tensor takes
 :func:`plain_fused_nearest_neighbors`.  :data:`LAUNCHES` counts every launch
 of the kernel (K1 and K2) and :data:`COORD_LAUNCHES` those with the
 coordinate carry (K1), so a run can show that it went through the kernel.
+Under a points group's row split (:func:`icp_tpu_torch.ops.nn.row_split`)
+each rank launches on its block of query rows and the rows are gathered
+back.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import math
 
 import torch
 
-from .nn import nearest_neighbors
+from .nn import nearest_neighbors, split_query_rows
 
 LAUNCHES = 0
 COORD_LAUNCHES = 0
@@ -153,8 +156,11 @@ def fused_nearest_neighbors(
     ``return_coords``, the matched target coordinates ``(..., N, D)``.
     """
     check_nn_inputs(query, targets, target_mask)
-    if query.device.type == "cpu":
-        return plain_fused_nearest_neighbors(
-            query, targets, target_mask, return_coords=return_coords
-        )
-    return launch_nn_kernel(query, targets, target_mask, return_coords)
+
+    def rows(q):
+        if q.device.type == "cpu":
+            return plain_fused_nearest_neighbors(q, targets, target_mask,
+                                                 return_coords=return_coords)
+        return launch_nn_kernel(q, targets, target_mask, return_coords)
+
+    return split_query_rows(rows, query)

@@ -5,7 +5,9 @@ Port of :mod:`icp_tpu.ops.pallas_nn` (``_nn_kernel``).  On the TPU, K2 and K1
 computation; on the card both are ``csrc/nn.cu``, here with the coordinate
 carry off.  A CUDA tensor goes to the kernel (counted in
 ``fused_nn.LAUNCHES``); a CPU tensor takes the plain
-:func:`icp_tpu_torch.ops.nn.nearest_neighbors`.
+:func:`icp_tpu_torch.ops.nn.nearest_neighbors`.  Under a points group's row
+split (:func:`icp_tpu_torch.ops.nn.row_split`) it runs on this rank's block
+of query rows and gathers the rows back.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import fused_nn
-from .nn import nearest_neighbors
+from .nn import nearest_neighbors, split_query_rows
 
 
 def nearest_neighbors_pallas(
@@ -27,6 +29,10 @@ def nearest_neighbors_pallas(
     ``(..., M)`` or None (all valid).
     """
     fused_nn.check_nn_inputs(query, targets, target_mask)
-    if query.device.type == "cpu":
-        return nearest_neighbors(query, targets, target_mask)
-    return fused_nn.launch_nn_kernel(query, targets, target_mask, return_coords=False)
+
+    def rows(q):
+        if q.device.type == "cpu":
+            return nearest_neighbors(q, targets, target_mask)
+        return fused_nn.launch_nn_kernel(q, targets, target_mask, return_coords=False)
+
+    return split_query_rows(rows, query)

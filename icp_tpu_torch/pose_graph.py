@@ -29,21 +29,33 @@ monotone guard's acceptance explicitly, where the JAX loop infers a rejected
 step from the damping ramp (``icp_tpu/pose_graph.py:731``) and so stops on a
 rejected step once the damping sits at its 1e3 clamp.
 
+Edge sharding (:func:`shard_over_edges`): a rank keeps its block of the
+edges and the whole poses, and the graph carries the process group
+(``edge_group``).  Everything per edge is then local, and every reduction
+over edges reduces over the group as well: the node sums of the scatters
+(the right-hand sides, the PCG/CG matvecs and the block-Jacobi blocks), the
+dense normal matrix, the cost sums, and the medians, quantiles and maxima
+of the robust scale (over the gathered edge vector).  The JAX package let
+XLA insert those reductions (one per ``segment_sum``).
+
 Not ported: ``pad_nodes`` (it rounded node counts to buckets so that
 refinements reused one compiled XLA executable; PyTorch compiles nothing per
-shape) and ``shard_over_edges`` (it waits for the port of ``parallel``).
+shape).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+from typing import Any
 
 import numpy as np
 import torch
 
 from . import geometry, lie
 from .geometry import RigidTransform
+from .parallel.comm import all_gather, all_reduce
+from .parallel.mesh import Layout, axis_group, axis_size, local_block, mesh_device
 
 # torch.func.jvp keeps its forward-AD levels in process-wide state, so two
 # threads linearizing at once (an asynchronous SLAM solve beside another
@@ -63,6 +75,9 @@ class PoseGraph:
     ``sqrt(w_e) · L_e^T · log(...)``.  With matrix whitening on an edge, the
     robust kernels' geometric norm of that edge is the whitened norm divided
     by ``sqrt(w_e)``: pick ``robust_scale`` (or ``'auto'``) in those units.
+    ``edge_group`` (set by :func:`shard_over_edges`): the process group
+    whose ranks hold the other blocks of the edges; the edge fields are then
+    this rank's block.
     """
 
     poses: RigidTransform  # (T, D, D) / (T, D)
@@ -70,6 +85,7 @@ class PoseGraph:
     measurements: RigidTransform  # (E, D, D) / (E, D)
     weights: torch.Tensor  # (E,)
     sqrt_information: torch.Tensor | None = None  # (E, dof, dof) or None
+    edge_group: Any = None  # a torch.distributed process group, or None
 
     @property
     def num_nodes(self) -> int:
@@ -231,23 +247,42 @@ def robust_edge_weights(
     return w, torch.sqrt(rn2)
 
 
+def _edge_sum(values: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the edges: this rank's block, then the edge group's."""
+    total = values.sum()
+    return total if group is None else all_reduce(total.reshape(1), group)[0]
+
+
+def _edge_max(values: torch.Tensor, group) -> torch.Tensor:
+    total = values.max()
+    return total if group is None else all_reduce(total.reshape(1), group, "max")[0]
+
+
+def _all_edges(values: torch.Tensor, group) -> torch.Tensor:
+    """The whole edge vector: every rank's block in rank order."""
+    return values if group is None else all_gather(values, group)
+
+
 def _index(values: torch.Tensor, position: torch.Tensor) -> torch.Tensor:
     """``values[position]`` for a 0-d index tensor, without a host sync."""
     return values.index_select(0, position.reshape(1).long())[0]
 
 
-def _masked_upper_median(rn: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Upper median of ``rn`` over ``keep`` (0 if the mask is empty)."""
+def _masked_upper_median(rn: torch.Tensor, keep: torch.Tensor, group=None) -> torch.Tensor:
+    """Upper median of ``rn`` over ``keep`` (0 if the mask is empty), over
+    every block of an edge ``group``."""
+    rn, keep = _all_edges(rn, group), _all_edges(keep, group)
     vals = torch.sort(torch.where(keep, rn, torch.full_like(rn, torch.inf))).values
     count = keep.sum()
     v = _index(vals, torch.clamp(count // 2, min=0))
     return torch.where(count > 0, v, torch.zeros_like(v))
 
 
-def _masked_quantile(rn: torch.Tensor, keep: torch.Tensor, q: float) -> torch.Tensor:
+def _masked_quantile(rn: torch.Tensor, keep: torch.Tensor, q: float, group=None) -> torch.Tensor:
     """Masked quantile with ``np.quantile``'s linear interpolation (0 if the
     mask is empty): the device twin of :func:`robust_solve`'s host
     bootstrap floor."""
+    rn, keep = _all_edges(rn, group), _all_edges(keep, group)
     vals = torch.sort(torch.where(keep, rn, torch.full_like(rn, torch.inf))).values
     count = keep.sum()
     last = torch.clamp(count - 1, min=0)
@@ -290,11 +325,12 @@ def auto_robust_scale(
                        cg_iterations=cg_iterations, early_exit_tol=early_exit_tol)
     rn = torch.sqrt(_geometric_rn2(base, base.poses))
     keep_rob, keep_noise = _noise_and_robust_masks(graph, robust_edges)
+    group = graph.edge_group
     if rule == "max":
-        closure_stat = torch.where(keep_rob, rn, torch.zeros_like(rn)).max()
+        closure_stat = _edge_max(torch.where(keep_rob, rn, torch.zeros_like(rn)), group)
     else:
-        closure_stat = _masked_upper_median(rn, keep_rob)
-    noise = _masked_upper_median(rn, keep_noise)
+        closure_stat = _masked_upper_median(rn, keep_rob, group)
+    noise = _masked_upper_median(rn, keep_noise, group)
     return torch.clamp(torch.maximum(2.0 * closure_stat, 0.5 * noise), min=1e-3)
 
 
@@ -311,12 +347,13 @@ def _unwhiten(rn2_whitened: torch.Tensor, weights: torch.Tensor) -> torch.Tensor
     return torch.where(live, rn2_whitened / safe, torch.zeros_like(rn2_whitened))
 
 
-def _scatter(num_nodes: int, i, j, vi, vj) -> torch.Tensor:
-    """Per-node sums of the edges' contributions to their two endpoints."""
+def _scatter(num_nodes: int, i, j, vi, vj, group=None) -> torch.Tensor:
+    """Per-node sums of the edges' contributions to their two endpoints (of
+    every block of an edge ``group``)."""
     out = torch.zeros((num_nodes,) + tuple(vi.shape[1:]), dtype=vi.dtype, device=vi.device)
     out.index_add_(0, i, vi)
     out.index_add_(0, j, vj)
-    return out
+    return out if group is None else all_reduce(out, group)
 
 
 def _tmatvec(blocks: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -328,9 +365,9 @@ def _matvec(blocks: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(blocks, v[..., None])[..., 0]
 
 
-def _jt(a_blk, b_blk, i, j, num_nodes, u) -> torch.Tensor:
+def _jt(a_blk, b_blk, i, j, num_nodes, u, group=None) -> torch.Tensor:
     """``J^T u`` with node 0's rows zeroed (the gauge)."""
-    g = _scatter(num_nodes, i, j, _tmatvec(a_blk, u), _tmatvec(b_blk, u))
+    g = _scatter(num_nodes, i, j, _tmatvec(a_blk, u), _tmatvec(b_blk, u), group)
     g[0] = 0.0
     return g
 
@@ -346,7 +383,8 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum()
 
 
-def _pcg_delta(r, a_blk, b_blk, i, j, num_nodes: int, damping, iterations: int) -> torch.Tensor:
+def _pcg_delta(r, a_blk, b_blk, i, j, num_nodes: int, damping, iterations: int,
+               group=None) -> torch.Tensor:
     """Block-Jacobi PCG solve of ``(P Jᵀ J P + λI) delta = -P Jᵀ r``.
 
     ``P`` projects out node 0 (the gauge); the Krylov space stays in the
@@ -355,15 +393,15 @@ def _pcg_delta(r, a_blk, b_blk, i, j, num_nodes: int, damping, iterations: int) 
     a zero denominator freezes the iterate, as in the JAX package.
     """
     d = r.shape[-1]
-    rhs = -_jt(a_blk, b_blk, i, j, num_nodes, r)
+    rhs = -_jt(a_blk, b_blk, i, j, num_nodes, r, group)
 
     def hv(v):
         vz = v.clone()
         vz[0] = 0.0
-        return _jt(a_blk, b_blk, i, j, num_nodes, _j(a_blk, b_blk, i, j, vz)) + damping * vz
+        return _jt(a_blk, b_blk, i, j, num_nodes, _j(a_blk, b_blk, i, j, vz), group) + damping * vz
 
     blocks = _scatter(num_nodes, i, j, torch.matmul(a_blk.transpose(-1, -2), a_blk),
-                      torch.matmul(b_blk.transpose(-1, -2), b_blk))
+                      torch.matmul(b_blk.transpose(-1, -2), b_blk), group)
     blocks = blocks + damping * torch.eye(d, dtype=r.dtype, device=r.device)
     minv = torch.linalg.inv_ex(blocks).inverse
 
@@ -390,7 +428,7 @@ def _pcg_delta(r, a_blk, b_blk, i, j, num_nodes: int, damping, iterations: int) 
     return x
 
 
-def _cg_delta(a_blk, b_blk, i, j, num_nodes: int, wr0, damping, iterations: int):
+def _cg_delta(a_blk, b_blk, i, j, num_nodes: int, wr0, damping, iterations: int, group=None):
     """Unpreconditioned CG on ``(Jᵀ J + λI) delta = -Jᵀ r`` from ``x0 = 0``:
     the recurrence and stopping rule of ``jax.scipy.sparse.linalg.cg`` as the
     JAX package calls it (``tol = 1e-5``, ``atol = 0``: stop once ``|r|² <=
@@ -399,9 +437,9 @@ def _cg_delta(a_blk, b_blk, i, j, num_nodes: int, wr0, damping, iterations: int)
     the iterate of the step where JAX's ``while_loop`` would have stopped."""
 
     def a_op(v):
-        return _jt(a_blk, b_blk, i, j, num_nodes, _j(a_blk, b_blk, i, j, v)) + damping * v
+        return _jt(a_blk, b_blk, i, j, num_nodes, _j(a_blk, b_blk, i, j, v), group) + damping * v
 
-    b = -_jt(a_blk, b_blk, i, j, num_nodes, wr0)
+    b = -_jt(a_blk, b_blk, i, j, num_nodes, wr0, group)
     atol2 = torch.clamp(1e-5 ** 2 * _dot(b, b), min=0.0)
     x = torch.zeros_like(b)
     r = b - a_op(x)
@@ -423,7 +461,7 @@ def _cg_delta(a_blk, b_blk, i, j, num_nodes: int, wr0, damping, iterations: int)
     return x
 
 
-def _dense_delta(a_blk, b_blk, i, j, num_nodes: int, wr0, damping) -> torch.Tensor:
+def _dense_delta(a_blk, b_blk, i, j, num_nodes: int, wr0, damping, group=None) -> torch.Tensor:
     """Dense GN step on the whole-graph Jacobian ``(E·dof, T·dof)``.
 
     Jacobi (diagonal) scaling comes before the factorization: a no-op in
@@ -442,6 +480,8 @@ def _dense_delta(a_blk, b_blk, i, j, num_nodes: int, wr0, damping) -> torch.Tens
     jac = jac.permute(0, 2, 1, 3).reshape(e * d, n_var)
     jtj = torch.matmul(jac.T, jac)
     jtr = torch.matmul(jac.T, wr0.reshape(-1))
+    if group is not None:
+        jtj, jtr = all_reduce(jtj, group), all_reduce(jtr, group)
     jtj = jtj + damping * torch.eye(n_var, dtype=wr0.dtype, device=wr0.device)
     dj = torch.sqrt(torch.diagonal(jtj))
     s = 1.0 / torch.clamp(dj, min=torch.finfo(wr0.dtype).tiny ** 0.5)
@@ -514,6 +554,7 @@ def optimize(
                          "(fixed-length mu anneal)")
     dtype = graph.poses.dtype
     device = graph.poses.translation.device
+    group = graph.edge_group
     i, j = _endpoints(graph)
 
     def weights_of(rn2, mu):
@@ -525,13 +566,13 @@ def optimize(
 
     def cost_at(poses, mu):
         g = dataclasses.replace(graph, poses=poses)
-        return (graph.weights * rho_of(_geometric_rn2(g, poses), mu)).sum()
+        return _edge_sum(graph.weights * rho_of(_geometric_rn2(g, poses), mu), group)
 
     if robust == "gnc_gm":
         rn2_init = _masked(_geometric_rn2(graph, graph.poses), robust_edges,
                            torch.zeros((), dtype=dtype, device=device))
         c2 = robust_scale * robust_scale
-        mu0 = torch.clamp(2.0 * rn2_init.max() / c2, min=1.0)
+        mu0 = torch.clamp(2.0 * _edge_max(rn2_init, group) / c2, min=1.0)
         head = max(1, int(iterations * gnc_head)) if gnc_head > 0 else 0
         tail = max(1, iterations // 4)
         anneal = max(1, iterations - head - tail)
@@ -552,17 +593,18 @@ def optimize(
             # convergence, so each path keeps its source.
             r_e = edge_residuals(g, poses)
         rn2 = _unwhiten((r_e * r_e).sum(-1), graph.weights)
-        cost = (graph.weights * rho_of(rn2, mu)).sum()
+        cost = _edge_sum(graph.weights * rho_of(rn2, mu), group)
         sw = torch.sqrt(weights_of(rn2, mu))
         r_e = r_e * sw[:, None]
         a_blk = a_blk * sw[:, None, None]
         b_blk = b_blk * sw[:, None, None]
         if solver == "pcg":
-            delta = _pcg_delta(r_e, a_blk, b_blk, i, j, graph.num_nodes, lm, cg_iterations)
+            delta = _pcg_delta(r_e, a_blk, b_blk, i, j, graph.num_nodes, lm, cg_iterations,
+                               group)
         elif solver == "cg":
-            delta = _cg_delta(a_blk, b_blk, i, j, graph.num_nodes, r_e, lm, cg_iterations)
+            delta = _cg_delta(a_blk, b_blk, i, j, graph.num_nodes, r_e, lm, cg_iterations, group)
         else:
-            delta = _dense_delta(a_blk, b_blk, i, j, graph.num_nodes, r_e, lm)
+            delta = _dense_delta(a_blk, b_blk, i, j, graph.num_nodes, r_e, lm, group)
         delta = delta.reshape(graph.num_nodes, d).clone()
         delta[0] = 0.0
         new_poses = _retract(poses, delta, dim)
@@ -647,7 +689,8 @@ def robust_solve(
                         robust_edges=robust_edges, gnc_head=gnc_head)
 
     def host(x):
-        return x.detach().cpu().numpy()
+        # The whole edge vector, also of an edge-sharded graph.
+        return _all_edges(x, graph.edge_group).detach().cpu().numpy()
 
     live = host(graph.weights) > 0
     if robust_edges is not None:
@@ -708,7 +751,8 @@ def robust_solve_fused(
     else:
         scale = torch.as_tensor(robust_scale, dtype=dtype, device=device)
     rob, noise_mask = _noise_and_robust_masks(graph, robust_edges)
-    bootstrap = _masked_quantile(torch.sqrt(_geometric_rn2(graph, graph.poses)), rob, 0.25)
+    group = graph.edge_group
+    bootstrap = _masked_quantile(torch.sqrt(_geometric_rn2(graph, graph.poses)), rob, 0.25, group)
 
     def solve(s):
         return optimize(graph, iterations=iterations, damping=damping, solver=solver,
@@ -719,8 +763,8 @@ def robust_solve_fused(
     opt, costs = solve(scale)
     for _ in range(max(0, scale_passes - 1)):
         rn = torch.sqrt(_geometric_rn2(opt, opt.poses))
-        clo = _masked_upper_median(rn, rob)
-        noise = _masked_upper_median(rn, noise_mask)
+        clo = _masked_upper_median(rn, rob, group)
+        noise = _masked_upper_median(rn, noise_mask, group)
         scale = torch.maximum(
             torch.maximum(torch.maximum(2.0 * clo, 0.5 * noise), bootstrap),
             torch.clamp(scale / shrink_bound, min=1e-3),
@@ -834,6 +878,32 @@ def pad_edges(graph: PoseGraph, multiple: int) -> PoseGraph:
         ),
         weights=torch.cat([graph.weights, torch.zeros((pad,), dtype=dtype, device=device)]),
         sqrt_information=sqrt_info,
+    )
+
+
+def shard_over_edges(graph: PoseGraph, mesh, axis: str = "data") -> PoseGraph:
+    """This rank's block of the edges over ``mesh``'s ``axis``, the poses
+    whole, and the axis' process group as ``edge_group``.
+
+    :func:`optimize` (every solver and robust kernel) then linearizes this
+    rank's edges and reduces every edge sum over the group (module doc);
+    every rank gets the same poses and costs.  The edge count is padded to
+    the axis size first (:func:`pad_edges`); zero-weight padding is exact.
+    Per-edge inputs and outputs (``robust_edges``, the weights of
+    :func:`robust_edge_weights`) are this rank's block.
+    """
+    graph = pad_edges(graph, axis_size(mesh, axis))
+    edges = Layout(mesh, (axis,))
+    device = mesh_device(mesh)
+    return PoseGraph(
+        poses=RigidTransform(graph.poses.rotation.to(device), graph.poses.translation.to(device)),
+        edges_ij=local_block(graph.edges_ij, edges),
+        measurements=RigidTransform(local_block(graph.measurements.rotation, edges),
+                                    local_block(graph.measurements.translation, edges)),
+        weights=local_block(graph.weights, edges),
+        sqrt_information=(None if graph.sqrt_information is None
+                          else local_block(graph.sqrt_information, edges)),
+        edge_group=axis_group(mesh, axis),
     )
 
 

@@ -5,17 +5,18 @@ images into temporary directories (``ICP_EXAMPLES_OUT``).
 Each port example must print its JAX original's key line (``CASES`` of
 ``tests/test_examples.py``).  Those that carry logic of their own
 (``JAX_COMPARED``: the registration, place recognition, the seq1 odometry
-and loop closure, online SLAM and the session merge) must also print the
-JAX example's numbers (``examples/*.py``, run in this process after the
-port's): the output lines are paired in order, every integer of a line (a
-count or an index) must equal the JAX example's, and every other number
-must equal it within one unit of its last printed digit (values under
-1e-12, a zero residual's round-off, count as zero).  Both sides run in
-float64 (the tests run JAX with x64) except where the JAX example computes
-in float32 (``register_pair``'s parsed scans and ``place_recognition``'s
-clouds; the port's CPU runs are float64 there): those numbers may also
-differ by FLOAT32_ATOL.  Lines that report a wall time or a written file
-are left out.  ``serving_demo`` must print a zero pose error across its
+and loop closure, online SLAM, the session merge and the fleet over the
+device mesh) must also print the JAX example's numbers (``examples/*.py``,
+run in this process after the port's): the output lines are paired in
+order, every integer of a line (a count or an index) must equal the JAX
+example's, and every other number must equal it within one unit of its
+last printed digit (values under 1e-12, a zero residual's round-off, count
+as zero).  Both sides run in float64 (the tests run JAX with x64) except
+where the JAX example computes in float32 (``register_pair``'s parsed scans
+and ``place_recognition``'s clouds, where the port's CPU runs are float64;
+``fleet_registration``, float32 in both): those numbers may also differ by
+FLOAT32_ATOL.  Lines that report a wall time or a written file are left
+out.  ``serving_demo`` must print a zero pose error across its
 clients.  ``slam_pipeline`` and ``odometry_sequence_3d`` are held to their
 key lines only (their JAX runs would add ~50 s): the pieces they chain are
 held against the JAX package in ``test_torch_slam.py`` (``run_slam``) and
@@ -23,7 +24,7 @@ held against the JAX package in ``test_torch_slam.py`` (``run_slam``) and
 chain, GICP).
 
 ``register_pair`` runs as the command a user types (``python -m
-icp_tpu_torch.examples.register_pair``); the other seven run in this process
+icp_tpu_torch.examples.register_pair``); the other eight run in this process
 through ``runpy.run_path``, so that torch is imported once, and so do the
 JAX examples, one after the other (run beside the port's, both slow down
 several times over on a shared CPU).
@@ -50,15 +51,21 @@ KEY_LINES = {
     "odometry_sequence_3d": "after closure",
     "online_slam": "stream done",
     "multi_session_merge": "merged sessions:",
+    "fleet_registration": "pairs on",
 }
 SKIPPED_LINES = ("wrote ", "render skipped", "concurrent clients served in")
 # online_slam's last "final live error": the JAX example measures it against
 # the sequence's last ground-truth pose, not the last streamed sweep's (the
 # port's departure, see icp_tpu_torch/examples/online_slam.py).
-DEPARTURES = {("online_slam", "stream done"): "final live error"}
-FLOAT32_ATOL = {"register_pair": 1e-6, "place_recognition": 1e-6}
+# fleet_registration's device count is the port's world size (one process
+# here), JAX's the 8 virtual CPU devices; the batch is 64 either way.
+DEPARTURES = {("online_slam", "stream done"): "final live error",
+              ("fleet_registration", "pairs on"): " on "}
+# fleet_registration's converged costs are float32 round-off of 30 m
+# coordinates (one float32 ulp at 30 m is 1.9e-6) in both packages.
+FLOAT32_ATOL = {"register_pair": 1e-6, "place_recognition": 1e-6, "fleet_registration": 1e-5}
 JAX_COMPARED = ("register_pair", "place_recognition", "odometry_sequence", "online_slam",
-                "multi_session_merge")
+                "multi_session_merge", "fleet_registration")
 _NUMBER = re.compile(r"[-+]?\d+(?:\.(\d+))?(?:e([-+]?\d+))?")
 
 

@@ -138,9 +138,25 @@ def test_plain_chunks_equal_one_pass(monkeypatch):
     q, t = _torch(rng.uniform(-5, 5, (5, 40, 2)), rng.uniform(-5, 5, (5, 60, 2)))
     mask = torch.from_numpy(rng.uniform(size=(5, 60)) > 0.3)
     whole = nn.nearest_neighbors(q, t, mask)
-    monkeypatch.setattr(nn, "CHUNK_BYTES", 2 * 40 * 60 * 8)  # two lanes per chunk
+    # The CPU's block (CHUNK_BYTES is the card's): two lanes per chunk.
+    monkeypatch.setattr(nn, "CPU_BLOCK_BYTES", 2 * 40 * 60 * 8)
     chunked = nn.nearest_neighbors(q, t, mask)
     for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 40])
+def test_plain_row_blocks_equal_one_pass(monkeypatch, rows):
+    """A lane larger than the CPU's block runs in blocks of query rows (7
+    leaves a ragged last block), with a query broadcast over the batch."""
+    rng = np.random.default_rng(7)
+    q, t = _torch(rng.uniform(-5, 5, (1, 40, 3)), rng.uniform(-5, 5, (3, 60, 3)))
+    t[1, 5:9] = t[1, 0]  # ties across rows' blocks
+    mask = torch.from_numpy(rng.uniform(size=(3, 60)) > 0.3)
+    whole = nn.nearest_neighbors(q, t, mask)
+    monkeypatch.setattr(nn, "CPU_BLOCK_BYTES", rows * 60 * 8)
+    blocked = nn.nearest_neighbors(q, t, mask)
+    for a, b in zip(whole, blocked):
         assert torch.equal(a, b)
 
 
